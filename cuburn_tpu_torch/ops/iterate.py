@@ -1,0 +1,299 @@
+"""The chaos-game iteration: the hot loop of the renderer.
+
+Port of `cuburn_tpu/ops/iterate.py`.  A batch of B trajectories
+advances in lockstep; per iteration, for every point:
+
+    u      = rng.uniform()
+    xf     = CDF selection (xaos-conditioned on the previous xform)
+    (x,y)  = post( sum_v w_v * V_v( affine * (x,y) ) )     [ops/xform.py]
+    c      = c*(1-speed) + xf.color*speed
+    badvalue (non-finite / |x|>1e10) -> respawn in the bi-unit square
+    if age >= fuse: plot the final-xform copy through the camera as a
+             packed u32 record addr << bits | palette coordinate
+
+`iterate_accumulate` collects `iters_per_flush` steps of records and
+flushes them into the histogram once per chunk.  JAX's `scan` and
+`fori_loop` are Python loops here; each step is a few hundred small
+eager kernels.  Records are int64 tensors holding u32 values.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from cuburn_tpu.genome.specs import StructureKey
+from cuburn_tpu_torch.ops import histogram as hist_mod
+from cuburn_tpu_torch.ops import rng as rng_mod
+from cuburn_tpu_torch.ops.camera import CameraSpec, project, project_3d
+from cuburn_tpu_torch.ops.flush import accumulate_windowed
+from cuburn_tpu_torch.ops.xform import (apply_final_xform, apply_xforms,
+                                        build_xform_table,
+                                        select_and_fetch)
+
+BADVALUE_LIMIT = float(np.float32(1e10))
+MASK32 = rng_mod.MASK32
+_INV24 = 1.0 / (1 << 24)
+
+
+@dataclass
+class IterState:
+    """Per-trajectory state: x, y, color (B,) float32; last_xf, age
+    (B,) int64; rng (B, 4) int64 holding u32 words."""
+    x: torch.Tensor
+    y: torch.Tensor
+    color: torch.Tensor
+    last_xf: torch.Tensor
+    age: torch.Tensor
+    rng: torch.Tensor
+
+
+def init_state(generator: torch.Generator, batch: int,
+               device: torch.device | str) -> IterState:
+    """Fresh trajectories: uniform in the bi-unit square, random color,
+    age 0 (they run `fuse` warmup iterations before plotting).  Drawn
+    from `generator` on its own device, then moved to `device`, so the
+    streams differ from the JAX package's threefry-seeded ones."""
+    gdev = generator.device
+    xy = torch.rand((2, batch), generator=generator,
+                    device=gdev) * 2.0 - 1.0
+    color = torch.rand((batch,), generator=generator, device=gdev)
+    rng = rng_mod.seed(generator, batch, device)
+    zeros = torch.zeros((batch,), dtype=torch.int64, device=device)
+    return IterState(x=xy[0].to(device), y=xy[1].to(device),
+                     color=color.to(device), last_xf=zeros,
+                     age=zeros.clone(), rng=rng)
+
+
+def xform_cdf_rows(params) -> torch.Tensor:
+    """(N, N) row-normalized CDFs: row i is the selection CDF over next
+    xforms given previous xform i.  Negative weights clamp to zero, and
+    an all-zero row falls back to uniform selection."""
+    probs = torch.clamp(params.weights[None, :], min=0.0) \
+        * torch.clamp(params.xaos, min=0.0)
+    row_sum = probs.sum(dim=1, keepdim=True)
+    probs = torch.where(row_sum > 0, probs, 1.0)
+    cdf = torch.cumsum(probs, dim=1)
+    total = torch.clamp(cdf[:, -1:], min=float(np.float32(1e-20)))
+    return cdf / total
+
+
+def _palette_rgb(palette, color):
+    """Linear-interp palette lookup; palette (256, 3), color in [0,1]."""
+    f = torch.clamp(color, 0.0, 1.0) * 255.0
+    i0 = torch.floor(f).to(torch.int64)
+    i1 = torch.clamp(i0 + 1, max=255)
+    frac = (f - i0.to(torch.float32))[..., None]
+    return palette[i0] * (1.0 - frac) + palette[i1] * frac
+
+
+def color_bits_for(n_bins: int) -> int:
+    """Palette-coordinate bits available when packing (addr, color)
+    into one u32 log record; 0 if packing is impossible."""
+    addr_bits = int(np.ceil(np.log2(n_bins + 2)))
+    bits = min(10, 32 - addr_bits)
+    return bits if bits >= 8 else 0
+
+
+def quantize_color(color_bits: int, pcolor):
+    """Palette coordinate in [0, 1] -> int64 quantized to
+    2^color_bits levels."""
+    levels = float((1 << color_bits) - 1)
+    q = torch.clamp(pcolor, 0.0, 1.0) * levels + 0.5
+    return q.to(torch.int64)
+
+
+def pack_records(color_bits: int, addr, pcolor):
+    """(addr, color) -> one u32 record (as int64) per plotted sample."""
+    return (addr << color_bits) | quantize_color(color_bits, pcolor)
+
+
+def unpack_records(color_bits: int, palette_hi, packed):
+    """Packed records -> (addr (int64), rgba (..., 4)).  A 4-column
+    palette carries its own density column; a 3-column one gets
+    density 1 appended."""
+    addr = packed >> color_bits
+    q = packed & ((1 << color_bits) - 1)
+    rgb = palette_hi[q]
+    if palette_hi.shape[-1] == 4:
+        return addr, rgb
+    return addr, torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
+
+
+def expand_palette(palette, color_bits: int):
+    """Resample the (256, 3) palette to 2^color_bits entries with the
+    same linear interpolation _palette_rgb applies.  The coordinates
+    are i * float32(1 / (n - 1)) with an exact 1.0 at the end: the
+    values XLA's compiled linspace gives the JAX package, which keeps
+    the resampled palettes of the two packages bit-identical."""
+    n = 1 << color_bits
+    coords = torch.arange(n - 1, dtype=torch.float32,
+                          device=palette.device) \
+        * float(np.float32(1.0 / (n - 1)))
+    coords = torch.cat([coords, coords.new_ones((1,))])
+    return _palette_rgb(palette, coords)
+
+
+def opacity_bits_for(n_bins: int, n_xforms: int):
+    """(op_bits, color_bits) for the opacity-extended packed record
+    `addr << (ob+cb) | xform_id << cb | color`, used when per-xform
+    opacities are not all 1.  (0, 0) when it does not fit 32 bits."""
+    addr_bits = int(np.ceil(np.log2(n_bins + 2)))
+    ob = max(1, int(np.ceil(np.log2(max(n_xforms, 2)))))
+    cb = min(8, 32 - addr_bits - ob)
+    return (ob, cb) if cb >= 8 else (0, 0)
+
+
+def extend_palette_opacity(palette_hi, opacity, op_bits: int):
+    """(2^cb, 3) palette + (N,) opacities -> (2^(ob+cb), 4) extended
+    palette: row (xf << cb | q) = [rgb*op_xf, op_xf]; rows for xform
+    ids >= N are zero."""
+    k = palette_hi.shape[0]
+    pal4 = torch.cat([palette_hi, palette_hi.new_ones((k, 1))], dim=1)
+    n_slots = 1 << op_bits
+    op = palette_hi.new_zeros((n_slots,))
+    op[:opacity.shape[0]] = torch.clamp(opacity, 0.0, 1.0)
+    return (op[:, None, None] * pal4[None]).reshape(n_slots * k, 4)
+
+
+def _mul32(a, m: int):
+    """(a * m) mod 2^32 for a in [0, 2^32) without int64 overflow:
+    the multiplier is split into 16-bit halves."""
+    lo = a * (m & 0xFFFF)
+    hi = ((a * (m >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & MASK32
+
+
+def respawn_xy(bits):
+    """Badvalue respawn position, uniform in the bi-unit square: two
+    independent murmur-style hashes of the selection draw's word."""
+    h1 = _mul32(bits, 0x9E3779B9)
+    h1 = h1 ^ (h1 >> 15)
+    h2 = _mul32(bits ^ 0x5BD1E995, 0xC2B2AE35)
+    h2 = h2 ^ (h2 >> 13)
+    rx = (h1 >> 8).to(torch.float32) * _INV24 * 2.0 - 1.0
+    ry = (h2 >> 8).to(torch.float32) * _INV24 * 2.0 - 1.0
+    return rx, ry
+
+
+def iterate_step(key: StructureKey, cam: CameraSpec, fuse: int, params,
+                 cdf_rows, ppu, state: IterState, table=None):
+    """One chaos-game iteration for every trajectory.
+
+    Returns (new_state, addr (B,) int64, pcolor (B,), opacity (B,));
+    non-plottable points carry the junk-bin address.  `table` is the
+    loop-invariant `build_xform_table` result (built here when None)."""
+    if table is None:
+        table = build_xform_table(key, params)
+    stream = rng_mod.RngStream(state.rng)
+    bits = stream.bits()
+    u = (bits >> 8).to(torch.float32) * _INV24
+    idx, prow = select_and_fetch(key, cdf_rows, table, state.last_xf, u)
+
+    nx, ny, ncolor, opacity = apply_xforms(
+        key, params, prow, state.x, state.y, state.color, stream)
+
+    bad = ~(torch.isfinite(nx) & torch.isfinite(ny)) \
+        | (torch.abs(nx) > BADVALUE_LIMIT) \
+        | (torch.abs(ny) > BADVALUE_LIMIT)
+    rx, ry = respawn_xy(bits)
+    nx = torch.where(bad, rx, nx)
+    ny = torch.where(bad, ry, ny)
+    ncolor = torch.where(bad, u, ncolor)
+    age = torch.where(bad, 0, state.age + 1)
+
+    # plot (display-only final xform on a copy)
+    px, py, pcolor = apply_final_xform(key, params, nx, ny, ncolor,
+                                       stream)
+    if key.cam_mode:
+        if key.cam_mode >= 2:
+            px, py = project_3d(params.cam3d, px, py,
+                                stream.uniform(), stream.uniform())
+        else:
+            px, py = project_3d(params.cam3d, px, py)
+    addr, in_bounds = project(cam, params.center, ppu, params.rotate,
+                              px, py, rot_center=params.rot_center)
+    visible = (age >= fuse) & in_bounds & (opacity > 0.0)
+    addr = torch.where(visible, addr, cam.junk_bin)
+
+    new_state = IterState(x=nx, y=ny, color=ncolor, last_xf=idx,
+                          age=age, rng=stream.state)
+    return new_state, addr, pcolor, opacity
+
+
+def record_bits(key: StructureKey, cam: CameraSpec, backend: str,
+                op_bits: int = 0):
+    """(color bits, total bits below the address) of the packed
+    records: the opacity-extended split when op_bits, else
+    color_bits_for capped at 8 for the windowed flush (flam3's native
+    palette resolution; also keeps records bit-identical to JAX's)."""
+    if op_bits:
+        _ob, cbits = opacity_bits_for(cam.layout_bins, key.n_xforms)
+        return cbits, op_bits + cbits
+    cbits = color_bits_for(cam.layout_bins)
+    if backend == "pallas_win" and cbits:
+        cbits = min(cbits, 8)
+    return cbits, cbits
+
+
+def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
+                       params, cdf_rows, state: IterState, hist, ppu,
+                       n_chunks: int, iters_per_flush: int, fuse: int,
+                       op_bits: int = 0):
+    """Advance n_chunks * iters_per_flush steps, flushing packed
+    records into `hist` (updated in place) once per chunk.
+
+    `backend` is "pallas_win" (the windowed flush, ops/flush.py) or
+    "scatter" (unpack + index_add_).  `op_bits` enables the
+    opacity-extended record.  Returns (new_state, hist, plotted) with
+    plotted a float32 device scalar, as the JAX counterpart's f32
+    counter."""
+    cbits, tot_bits = record_bits(key, cam, backend, op_bits)
+    if not cbits:
+        raise NotImplementedError(
+            "records do not pack into 32 bits; the unpacked (addr, rgba) "
+            "path is not ported yet (ROADMAP.md queue A)")
+    if backend == "pallas_win":
+        flush = accumulate_windowed
+    else:
+        scatter = hist_mod.get_backend(backend)
+
+        def flush(hist, recs, palette_hi, n_bins, bits):
+            return scatter(hist, *unpack_records(bits, palette_hi, recs))
+
+    palette_hi = expand_palette(params.palette, cbits)
+    if op_bits:
+        palette_hi = extend_palette_opacity(palette_hi, params.opacity,
+                                            op_bits)
+    table = build_xform_table(key, params)
+    batch = state.x.shape[0]
+    recs = torch.empty((iters_per_flush, batch), dtype=torch.int64,
+                       device=state.x.device)
+    plotted = torch.zeros((), dtype=torch.float32, device=state.x.device)
+    for _ in range(n_chunks):
+        for k in range(iters_per_flush):
+            state, addr, pcolor, _op = iterate_step(
+                key, cam, fuse, params, cdf_rows, ppu, state, table=table)
+            rec = (addr << tot_bits) | quantize_color(cbits, pcolor)
+            if op_bits:
+                # the selected xform id splices between address and color
+                rec = rec | (state.last_xf << cbits)
+            recs[k] = rec
+        hist = flush(hist, recs, palette_hi, cam.n_bins, tot_bits)
+        # per-chunk count is exact in int64; the running total is f32
+        plotted = plotted + ((recs >> tot_bits) != cam.junk_bin).sum() \
+            .to(torch.float32)
+    return state, hist, plotted
+
+
+def hist_alloc_for(backend: str, n_bins: int, device):
+    """The histogram in the layout the backend accumulates into: the
+    logical (n_bins+1, 4) layout for every backend of the port."""
+    return hist_mod.alloc(n_bins, device)
+
+
+def hist_to_logical(backend: str, hist, n_bins: int):
+    """Backend layout -> logical (n_bins+1, 4): the identity here."""
+    return hist
