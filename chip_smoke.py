@@ -7,29 +7,50 @@ Run from the root of a checkout on a machine with a CUDA GPU and the
 CUDA toolkit.  Phases, each printed on its own line:
 
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    compile csrc/win_flush.cu with nvcc (sm_90a)
-  3. kernel   the windowed-flush kernel against its plain PyTorch
-              version at the main path's shapes (2^22 records into the
-              8.63 M-bin 1080p-ss2 histogram): density bit-exact with a
-              3-column palette at weight 1.0, every channel within 1e-5
-              of the bin's density with the 4-column opacity palette at
-              weight 0.37; median of 10 timed calls for both
+  2. build    compile every csrc/*.cu kernel with nvcc (sm_90a), one
+              nvcc process per source, all started together
+  3. kernel   the windowed-flush kernel (win_flush.cu) against its plain
+              PyTorch version at the main path's shapes (2^22 records
+              into the 8.63 M-bin 1080p-ss2 histogram): density
+              bit-exact with a 3-column palette at weight 1.0, every
+              channel within 1e-5 of the bin's density with the 4-column
+              opacity palette at weight 0.37; median of 10 timed calls
+              of the kernel path, the plain version and one PyTorch call
+              computing the same function (unpack + index_add_), and
+              the bound from the bytes the flush must move
   4. render   Renderer(full_feature, 1080p profile at quality Q)
               .render_frame on cuda through the kernel; the PNG goes to
-              smoke_out/ in the checkout
+              smoke_out/ in the checkout.  Then the records of the first
+              two flushes of that render (the first holds the fuse
+              steps) against the synthetic mix of phases 3 and 6: junk
+              share, touched bins, hot-bin shares, and the unsorted
+              flush (scatter_flush.cu) timed on each
   5. parity   sierpinski and full_feature at 128x128 on cuda against
               the same render on the CPU (the flush's plain version):
               TV distance of the normalised density histograms under 3x
               the CPU path's two-seed floor
+  6. kernel   the other kernels at the same shapes, each against its
+              plain version: the unsorted and merged flushes
+              (scatter_flush.cu) as in phase 3; the split flush
+              (win_flush_rgb16.cu) from a nonzero split histogram,
+              density bit-exact and rgb within one bf16 ulp; the tiled
+              bitonic sort (bitonic_sort.cu) equal to torch.sort at 2^22
+              and 2^23 keys; times and bounds as in phase 3
+  7. render   full_feature at 1080p through the backends pallas,
+              pallas_merged and pallas_rgb16 at quality Q: launches > 0,
+              histogram mass == plotted samples, a non-black frame
+  8. parity   full_feature at 128x128, CUDA against CPU, for every
+              backend besides pallas_win, under 3x the two-seed floor
 
-Then one JSON line describing each kernel, and last
-{"ok": true, "device": {...}}.  Any failed check exits non-zero before
-the last line.  Without CUDA it exits non-zero at once.
+Then one JSON line describing each kernel, the nvidia-smi line, and
+last {"ok": true, "device": {...}}.  Any failed check exits non-zero
+before those lines.  Without CUDA it exits non-zero at once.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import statistics
@@ -38,8 +59,28 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCE = "cuburn_tpu_torch/csrc/win_flush.cu"
-KERNEL_REPLACES = "cuburn_tpu/ops/pallas_hist.py:348"
+CSRC = "cuburn_tpu_torch/csrc"
+# kernel -> (library built from csrc/<library>.cu, the TPU kernel it
+# replaces)
+KERNELS = {
+    "win_flush": ("win_flush", "cuburn_tpu/ops/pallas_hist.py:348"),
+    "packed_flush": ("scatter_flush", "cuburn_tpu/ops/pallas_hist.py:70"),
+    "merged_flush": ("scatter_flush", "cuburn_tpu/ops/pallas_hist.py:99"),
+    "win_flush_rgb16": ("win_flush_rgb16",
+                        "cuburn_tpu/ops/pallas_hist.py:305"),
+    "bitonic_sort": ("bitonic_sort", "cuburn_tpu/ops/pallas_sort.py:40"),
+}
+# the backend whose render drives each flush kernel
+RENDER_BACKENDS = {"packed_flush": "pallas", "merged_flush": "pallas_merged",
+                   "win_flush_rgb16": "pallas_rgb16"}
+# H100 SXM published peaks (at a 700 W power limit): device memory and
+# float32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+SENTINEL = 0xFFFFFFFF
+# palette columns, color bits, weight.  8 bits is what the 1080p
+# accumulator leaves (24 address bits), so every record fits 32 bits
+FLUSH_CONFIGS = ((3, 8, 1.0), (4, 8, 0.37))
 
 
 def check(cond, msg):
@@ -60,6 +101,24 @@ def timed(fn, sync):
     return (time.perf_counter() - t0) * 1e3
 
 
+def medians(fns, sync, reps=10):
+    """{name: median ms of `reps` calls after one warm-up}, the
+    functions called in turns."""
+    ms = {k: [] for k in fns}
+    for _ in range(reps + 1):
+        for k, fn in fns.items():
+            ms[k].append(timed(fn, sync))
+    return {k: statistics.median(v[1:]) for k, v in ms.items()}
+
+
+def bound(nbytes, ops=0.0):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate
+    and operations over the float32 rate."""
+    b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    o_ms = ops / PEAK_F32_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
 def flush_records(torch, n, n_bins, acc_width, bits, gen):
     """Packed records shaped like one 1080p flush: 60% spread over the
     frame, 30% in a hot 128x128 patch mid-frame (~75 records a bin),
@@ -75,56 +134,221 @@ def flush_records(torch, n, n_bins, acc_width, bits, gen):
     return rec[torch.randperm(n, generator=gen)]
 
 
-def phase_kernel(torch, flush, thist, n_bins, acc_width):
-    """Kernel against its plain version on the card (phase 3)."""
+def flush_inputs(torch, n, n_bins, acc_width, cols, bits, gen):
+    dev = torch.device("cuda")
+    rec = flush_records(torch, n, n_bins, acc_width, bits, gen).to(dev)
+    pal = torch.rand((1 << bits, cols), generator=gen).to(dev)
+    if cols == 4:
+        pal[:, :3] *= pal[:, 3:]        # rgb * opacity, opacity
+    return rec, pal
+
+
+def touched_bins(torch, rec, n_bins, bits):
+    """Distinct bins this flush's records land in, counted on the card."""
+    live = rec[rec != SENTINEL]
+    return int(torch.unique(torch.clamp(live >> bits, max=n_bins)).numel())
+
+
+def library_flush(torch, hist, rec, pal4, n_bins, bits, weight):
+    """The one PyTorch call computing a flush: unpack + index_add_."""
+    addr = torch.clamp(rec >> bits, max=n_bins)
+    return hist.index_add_(0, addr, pal4[rec & ((1 << bits) - 1)],
+                           alpha=weight)
+
+
+def phase_flush(torch, flush, thist, name, n_bins, acc_width, phase_no):
+    """A flush kernel of the logical histogram against its plain version
+    on the card, at the main path's shapes."""
+    kernel, plain = {
+        "win_flush": (flush.accumulate_windowed,
+                      flush.accumulate_windowed_reference),
+        "packed_flush": (flush.accumulate_packed,
+                         flush.accumulate_packed_reference),
+        "merged_flush": (flush.accumulate_merged,
+                         flush.accumulate_merged_reference),
+    }[name]
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(3)
     n = 1 << 22
     sync = torch.cuda.synchronize
     results, max_err = {}, 0.0
-    for cols, bits, weight in ((3, 8, 1.0), (4, 10, 0.37)):
-        rec = flush_records(torch, n, n_bins, acc_width, bits,
-                            gen).to(dev)
-        pal = torch.rand((1 << bits, cols), generator=gen).to(dev)
-        if cols == 4:
-            pal[:, :3] *= pal[:, 3:]        # rgb * opacity, opacity
-        got = flush.accumulate_windowed(thist.alloc(n_bins, dev), rec,
-                                        pal, n_bins, bits, weight)
-        ref = flush.accumulate_windowed_reference(
-            thist.alloc(n_bins, dev), rec, pal, n_bins, bits, weight)
+    for cols, bits, weight in FLUSH_CONFIGS:
+        rec, pal = flush_inputs(torch, n, n_bins, acc_width, cols, bits,
+                                gen)
+        got = kernel(thist.alloc(n_bins, dev), rec, pal, n_bins, bits,
+                     weight)
+        ref = plain(thist.alloc(n_bins, dev), rec, pal, n_bins, bits,
+                    weight)
         sync()
         got, ref = got[:n_bins], ref[:n_bins]
         err = (got - ref).abs()
-        bound = 1e-5 * torch.clamp(ref[:, 3:], min=1.0)
-        check(bool((err <= bound).all()),
-              f"kernel disagrees: max err {float(err.max())} "
+        tol = 1e-5 * torch.clamp(ref[:, 3:], min=1.0)
+        check(bool((err <= tol).all()),
+              f"{name} disagrees: max err {float(err.max())} "
               f"({cols}-column palette, weight {weight})")
         if cols == 3:
             check(torch.equal(got[:, 3], ref[:, 3]),
-                  "density not bit-exact at weight 1.0")
-        check(float(ref[:, 3].sum()) > 0, "flush added no mass")
+                  f"{name}: density not bit-exact at weight 1.0")
+        check(float(ref[:, 3].sum()) > 0, f"{name} added no mass")
         max_err = max(max_err, float(err.max()))
 
-        hk, hr = thist.alloc(n_bins, dev), thist.alloc(n_bins, dev)
+        hk, hr, hl = (thist.alloc(n_bins, dev) for _ in range(3))
+        pal4 = flush._pal4(pal).contiguous()
+        fns = {
+            "ms": lambda: kernel(hk, rec, pal, n_bins, bits, weight),
+            "plain_ms": lambda: plain(hr, rec, pal, n_bins, bits, weight),
+            "library_ms": lambda: library_flush(torch, hl, rec, pal4,
+                                                n_bins, bits, weight),
+        }
+        if name == "win_flush":
+            srt = torch.sort(rec).values
+            fns["kernel_only_ms"] = lambda: flush._launch(
+                "win_flush", dev, srt.data_ptr(), srt.numel(),
+                pal4.data_ptr(), bits, n_bins, weight, hk.data_ptr())
+            fns["sort_ms"] = lambda: torch.sort(rec)
+        elif name == "packed_flush":
+            # the same records without the junk bin's 10%, all of whose
+            # atomics hit one address
+            live = rec[(rec >> bits) != n_bins]
+            fns["no_junk_ms"] = lambda: kernel(hk, live, pal, n_bins,
+                                               bits, weight)
+        elif name == "merged_flush":
+            uq, cn = flush.merge_records(rec, n_bins, bits)
+            fns["kernel_only_ms"] = lambda: flush._launch(
+                "merged_flush", dev, uq.data_ptr(), cn.data_ptr(),
+                uq.numel(), pal4.data_ptr(), bits, n_bins, weight,
+                hk.data_ptr())
+            fns["sort_merge_ms"] = lambda: flush.merge_records(
+                rec, n_bins, bits)
+        med = medians(fns, sync)
+        touched = touched_bins(torch, rec, n_bins, bits)
+        # records read once, each touched bin's 16 bytes read and
+        # written once, the palette read once; ~8 flops a record
+        med["bound_ms"], med["bound_by"] = bound(
+            n * 8 + touched * 32 + pal.numel() * 4, ops=8.0 * n)
+        results[cols] = med
+        phase(phase_no, "kernel", kernel=name, palette_cols=cols,
+              weight=weight, records=n, bins=n_bins, touched_bins=touched,
+              max_abs_err=float(err.max()), density_exact=cols == 3,
+              **med)
+    return results[3], max_err
+
+
+def phase_rgb16(torch, flush, n_bins, acc_width):
+    """The split flush against its plain version from a nonzero split
+    histogram (phase 6)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(5)
+    n = 1 << 22
+    sync = torch.cuda.synchronize
+    results, max_err = {}, 0.0
+    bf16 = torch.bfloat16
+    for cols, bits, weight in FLUSH_CONFIGS:
+        rec, pal = flush_inputs(torch, n, n_bins, acc_width, cols, bits,
+                                gen)
+        start = torch.rand((n_bins + 1, 4), generator=gen).to(dev) * 50.0
+        start[:, 3] = torch.randint(0, 1000, (n_bins + 1,),
+                                    generator=gen).to(dev).float()
+        got = flush.accumulate_windowed_rgb16(
+            flush.to_split_layout(start), rec, pal, n_bins, bits, weight)
+        ref = flush.accumulate_windowed_rgb16_reference(
+            flush.to_split_layout(start), rec, pal, n_bins, bits, weight)
+        sync()
+        # the junk bin is left out, as in phase 3: with fractional
+        # density its sum of ~400K records differs by float32 order
+        gd, rd = got[0][:n_bins], ref[0][:n_bins]
+        d_err = (gd - rd).abs()
+        rg, rr = got[1][:n_bins].float(), ref[1][:n_bins].float()
+        ulp = torch.finfo(bf16).eps * rr.abs().clamp(
+            min=torch.finfo(bf16).tiny)
+        rgb_err = (rg - rr).abs()
+        check(bool((rgb_err <= ulp).all()),
+              f"win_flush_rgb16: rgb off by more than one bf16 ulp "
+              f"(max err {float(rgb_err.max())}, weight {weight})")
+        check(bool((d_err <= 1e-5 * rd.clamp(min=1.0)).all()),
+              f"win_flush_rgb16: density max err {float(d_err.max())}")
+        if cols == 3:
+            check(torch.equal(gd, rd),
+                  "win_flush_rgb16: density not bit-exact at weight 1.0")
+        check(float(got[0].sum()) > float(start[:, 3].sum()),
+              "win_flush_rgb16 added no mass")
+        err = max(float(d_err.max()), float(rgb_err.max()))
+        max_err = max(max_err, err)
+
+        sk = flush.to_split_layout(start)
+        sr = flush.to_split_layout(start)
         srt = torch.sort(rec).values
         pal4 = flush._pal4(pal).contiguous()
-        k_ms, p_ms, only_ms, sort_ms = [], [], [], []
-        for _ in range(11):                 # the first pair warms up
-            k_ms.append(timed(lambda: flush.accumulate_windowed(
-                hk, rec, pal, n_bins, bits, weight), sync))
-            p_ms.append(timed(lambda: flush.accumulate_windowed_reference(
-                hr, rec, pal, n_bins, bits, weight), sync))
-            only_ms.append(timed(lambda: flush._launch(
-                hk, srt, pal4, n_bins, bits, weight), sync))
-            sort_ms.append(timed(lambda: torch.sort(rec), sync))
-        med = {k: statistics.median(v[1:]) for k, v in (
-            ("ms", k_ms), ("plain_ms", p_ms), ("kernel_only_ms", only_ms),
-            ("sort_ms", sort_ms))}
+        carry = torch.zeros((n // flush.RGB16_RUN, 4), device=dev)
+
+        def kernel_only():
+            carry.zero_()
+            flush.rgb16_launch(srt, pal4, bits, n_bins, weight, sk[0],
+                               sk[1], carry)
+        med = medians({
+            "ms": lambda: flush.accumulate_windowed_rgb16(
+                sk, rec, pal, n_bins, bits, weight),
+            "plain_ms": lambda: flush.accumulate_windowed_rgb16_reference(
+                sr, rec, pal, n_bins, bits, weight),
+            "kernel_only_ms": kernel_only,
+        }, sync)
+        touched = touched_bins(torch, rec, n_bins, bits)
+        # records once; per touched bin 4 bytes of density and 6 of rgb,
+        # read and written once
+        med["bound_ms"], med["bound_by"] = bound(
+            n * 8 + touched * 20 + pal.numel() * 4, ops=8.0 * n)
+        # no one PyTorch call adds into a bf16 split histogram with one
+        # rounding per bin
+        med["library_ms"] = None
         results[cols] = med
-        phase(3, "kernel", palette_cols=cols, weight=weight, records=n,
-              bins=n_bins, max_abs_err=float(err.max()),
-              density_exact=cols == 3, **med)
+        phase(6, "kernel", kernel="win_flush_rgb16", palette_cols=cols,
+              weight=weight, records=n, bins=n_bins, touched_bins=touched,
+              max_abs_err=err, density_exact=cols == 3, **med)
     return results[3], max_err
+
+
+def phase_sort(torch, tiled_sort):
+    """The tiled bitonic sort against torch.sort (phase 6).  Returns the
+    2^22-key timings, the max error and the kernel launches of the
+    checked calls (one per pass)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(7)
+    sync = torch.cuda.synchronize
+    keys = {}
+    for log_n in (22, 23):
+        k = torch.randint(0, 1 << 32, (1 << log_n,), generator=gen)
+        k[:1000] = SENTINEL
+        k[1000:2000] = 1 << 31
+        keys[log_n] = k.to(dev)
+    tiled_sort.LAUNCHES["bitonic_sort"] = 0
+    got = {n: tiled_sort.bitonic_sort_u32_tiled(k) for n, k in keys.items()}
+    sync()
+    launches = tiled_sort.LAUNCHES["bitonic_sort"]
+    check(launches == sum(len(tiled_sort.bitonic_schedule(k.numel()))
+                          for k in keys.values()),
+          f"bitonic sort: {launches} launches, expected one per pass")
+    results, max_err = {}, 0.0
+    for log_n, k in keys.items():
+        ref = torch.sort(k).values
+        check(torch.equal(got[log_n], ref),
+              f"bitonic sort differs from torch.sort at 2^{log_n}")
+        max_err = max(max_err, float((got[log_n] - ref).abs().max()))
+        n = k.numel()
+        med = medians({
+            "ms": lambda: tiled_sort.bitonic_sort_u32_tiled(k),
+            "plain_ms": lambda: tiled_sort.bitonic_sort_reference(k),
+            "library_ms": lambda: torch.sort(k),
+        }, sync, reps=10 if log_n == 22 else 3)
+        # int64 keys read once and written once; a min and a max for
+        # each pair of every substage of the network
+        substages = log_n * (log_n + 1) // 2
+        med["bound_ms"], med["bound_by"] = bound(
+            n * 16, ops=2.0 * (n // 2) * substages)
+        results[log_n] = med
+        phase(6, "kernel", kernel="bitonic_sort", keys=n,
+              tile=tiled_sort.TILE, equal_to_torch_sort=True,
+              passes=len(tiled_sort.bitonic_schedule(n)), **med)
+    return results[22], max_err, launches
 
 
 def tv_distance(a, b):
@@ -133,14 +357,15 @@ def tv_distance(a, b):
     return 0.5 * float((da / da.sum() - db / db.sum()).abs().sum())
 
 
-def phase_render(torch, flush, write_image, r, quality):
+def phase_render(torch, flush, tit, write_image, r, quality):
     """The main path on the card (phase 4): returns the kernel's
-    launches during render_frame."""
+    launches during render_frame and copies of the records of the first
+    two flushes of a second pass."""
     check(r.backend == "pallas_win",
           f"backend {r.backend}, expected pallas_win")
-    flush.LAUNCHES = 0
+    flush.LAUNCHES["win_flush"] = 0
     img, stats = r.render_frame(0.0, seed=1)
-    launches = flush.LAUNCHES
+    launches = flush.LAUNCHES["win_flush"]
     check(launches > 0, "the 1080p render launched no kernel")
     check(stats.plotted_samples > 0, "no samples plotted")
     check(img.shape == (1080, 1920, 4), f"image shape {img.shape}")
@@ -152,8 +377,17 @@ def phase_render(torch, flush, write_image, r, quality):
     # the histogram behind such a frame: finite, and its mass is the
     # plotted count (a second pass, after the launches are read).  The
     # mass is exact in float64; the plotted counter is float32, as in
-    # the JAX package, so past 2^24 it carries its own rounding.
+    # the JAX package, so past 2^24 it carries its own rounding.  The
+    # pass keeps its first two flushes' records for the flush-mix phase.
+    flushes, win = [], tit.PACKED_FLUSHES["pallas_win"]
+
+    def keep_first(hist, recs, *args):
+        if len(flushes) < 2:
+            flushes.append(recs.reshape(-1).clone())
+        return win(hist, recs, *args)
+    tit.PACKED_FLUSHES["pallas_win"] = keep_first
     hist, st2 = r.accumulate(0.0, seed=2)
+    tit.PACKED_FLUSHES["pallas_win"] = win
     check(bool(torch.isfinite(hist).all()), "non-finite histogram")
     mass = float(hist[:-1, 3].double().sum())
     check(abs(mass - st2.plotted_samples) <= 1e-4 * mass,
@@ -172,14 +406,94 @@ def phase_render(torch, flush, write_image, r, quality):
           iterate_s=stats.iterate_s, filter_s=stats.filter_s,
           lit_fraction=float((img[..., :3] > 0).any(-1).mean()),
           png=os.path.relpath(png, REPO))
+    return launches, flushes
+
+
+def flush_mix(torch, rec, n_bins, bits, hot_bins=128 * 128):
+    """How one flush's records spread over the bins: the junk share,
+    the touched bins, and the share of live records in the hottest bin
+    and the hottest `hot_bins` bins (the synthetic mix puts 30% of its
+    records into 128 x 128 bins)."""
+    addr = torch.clamp(rec >> bits, max=n_bins)
+    per_bin = torch.bincount(addr, minlength=n_bins + 1)
+    live = per_bin[:n_bins]
+    n = rec.numel()
+    return {"records": n, "junk_share": float(per_bin[n_bins]) / n,
+            "touched_bins": int((live > 0).sum()),
+            "records_per_touched_bin":
+                float(live.sum()) / max(int((live > 0).sum()), 1),
+            "hottest_bin_share": float(live.max()) / n,
+            f"hottest_{hot_bins}_bins_share":
+                float(live.topk(hot_bins).values.sum()) / n}
+
+
+def phase_flush_mix(torch, flush, thist, flushes, n_bins, acc_width,
+                    bits):
+    """The records of real 1080p flushes against the synthetic mix of
+    the kernel phases (phase 4): how they spread, and the unsorted
+    flush timed on each, with and without the junk bin's records.  The
+    first flush of a render holds the fuse steps, whose points all go
+    to the junk bin; the second is what every later flush looks like."""
+    dev = torch.device("cuda")
+    rec = flushes[1]
+    gen = torch.Generator().manual_seed(3)
+    synth, pal = flush_inputs(torch, rec.numel(), n_bins, acc_width, 3,
+                              bits, gen)
+    hist = thist.alloc(n_bins, dev)
+    fns = {}
+    for name, r in (("first", flushes[0]), ("real", rec),
+                    ("synthetic", synth)):
+        live = r[(r >> bits) < n_bins]
+        fns[f"{name}_ms"] = (lambda r=r: flush.accumulate_packed(
+            hist, r, pal, n_bins, bits))
+        fns[f"{name}_no_junk_ms"] = (lambda r=live: flush.accumulate_packed(
+            hist, r, pal, n_bins, bits))
+    med = medians(fns, torch.cuda.synchronize)
+    phase(4, "flush_mix", kernel="packed_flush", color_bits=bits,
+          first=flush_mix(torch, flushes[0], n_bins, bits),
+          real=flush_mix(torch, rec, n_bins, bits),
+          synthetic=flush_mix(torch, synth, n_bins, bits), **med)
+
+
+def phase_render_backend(torch, flush, Renderer, genome, get_profile,
+                         name, quality):
+    """full_feature at 1080p through one more kernel's backend (phase
+    7): accumulate + finalize_frame, the two halves of render_frame, so
+    one pass gives the launches, the mass and the frame."""
+    backend = RENDER_BACKENDS[name]
+    r = Renderer(genome, get_profile("1080p", quality=quality,
+                                     hist_backend=backend))
+    check(r.backend == backend, f"backend {r.backend}, expected {backend}")
+    flush.LAUNCHES[name] = 0
+    hist, stats = r.accumulate(0.0, seed=1)
+    img = r.finalize_frame(hist, 0.0, stats)
+    launches = flush.LAUNCHES[name]
+    check(launches > 0, f"the {backend} render launched no {name}")
+    check(bool(torch.isfinite(hist).all()),
+          f"{backend}: non-finite histogram")
+    mass = float(hist[:-1, 3].double().sum())
+    check(abs(mass - stats.plotted_samples) <= 1e-4 * mass,
+          f"{backend}: histogram mass {mass} != plotted samples "
+          f"{stats.plotted_samples}")
+    check(img.shape == (1080, 1920, 4), f"image shape {img.shape}")
+    check(bool(img[..., :3].any()), f"{backend}: the image is black")
+    cam = r.cam
+    phase(7, "render", genome="full_feature", profile="1080p",
+          quality=quality, bins=cam.n_bins, backend=backend, kernel=name,
+          launches=launches, plotted_samples=stats.plotted_samples,
+          total_iters=stats.total_iters, mass=mass,
+          samples_per_s=stats.samples_per_sec,
+          iterate_s=stats.iterate_s, filter_s=stats.filter_s,
+          lit_fraction=float((img[..., :3] > 0).any(-1).mean()))
     return launches
 
 
-def phase_parity(torch, Renderer, RenderProfile, g):
-    """CUDA against CPU by distribution at 128x128 (phase 5).  One seed
-    gives both devices the same starting trajectories."""
+def phase_parity(torch, Renderer, RenderProfile, g, backend="pallas_win",
+                 phase_no=5):
+    """CUDA against CPU by distribution at 128x128.  One seed gives both
+    devices the same starting trajectories."""
     prof = RenderProfile(width=128, height=128, quality=100,
-                         hist_backend="pallas_win", de_enabled=False)
+                         hist_backend=backend, de_enabled=False)
     h_cu, s_cu = Renderer(g, prof, device="cuda").accumulate(0.0, seed=11)
     cpu = Renderer(g, prof, device="cpu")
     h_a, _ = cpu.accumulate(0.0, seed=11)
@@ -187,16 +501,27 @@ def phase_parity(torch, Renderer, RenderProfile, g):
     check(bool(torch.isfinite(h_cu).all()), "non-finite histogram")
     floor = tv_distance(h_a, h_b)
     d = tv_distance(h_cu, h_a)
-    phase(5, "parity", genome=g.name, tv_cuda_vs_cpu=d,
-          tv_cpu_two_seed_floor=floor, limit=3 * floor,
+    phase(phase_no, "parity", genome=g.name, backend=backend,
+          tv_cuda_vs_cpu=d, tv_cpu_two_seed_floor=floor, limit=3 * floor,
           plotted=s_cu.plotted_samples)
-    check(d < 3 * floor, f"{g.name}: TV {d} >= 3x floor {floor}")
+    check(d < 3 * floor, f"{g.name} via {backend}: TV {d} >= 3x floor "
+          f"{floor}")
+
+
+def build_all(build):
+    """Every kernel library, one nvcc each, all started together."""
+    libs = sorted({lib for lib, _ in KERNELS.values()})
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        paths = dict(zip(libs, pool.map(build.build, libs)))
+    for lib in libs:
+        build.load(lib)
+    return paths
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quality", type=int, default=100,
-                    help="samples per output pixel of the 1080p render")
+                    help="samples per output pixel of the 1080p renders")
     args = ap.parse_args(argv)
 
     import torch
@@ -204,12 +529,13 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    from cuburn_tpu.models import full_feature, sierpinski
-    from cuburn_tpu.output import write_image
-    from cuburn_tpu.profile import RenderProfile, get_profile
     from cuburn_tpu_torch.kernels import build
-    from cuburn_tpu_torch.ops import flush
+    from cuburn_tpu_torch.models import full_feature, sierpinski
+    from cuburn_tpu_torch.ops import flush, tiled_sort
     from cuburn_tpu_torch.ops import histogram as thist
+    from cuburn_tpu_torch.ops import iterate as tit
+    from cuburn_tpu_torch.output import write_image
+    from cuburn_tpu_torch.profile import RenderProfile, get_profile
     from cuburn_tpu_torch.render import Renderer
 
     smi = subprocess.run(
@@ -222,25 +548,52 @@ def main(argv=None) -> int:
           cuda=torch.version.cuda, count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    lib = build.build("win_flush")
-    build.load("win_flush")
+    libs = build_all(build)
     phase(2, "build", seconds=round(time.perf_counter() - t0, 3),
-          library=os.path.relpath(lib, REPO))
+          libraries={k: os.path.relpath(v, REPO) for k, v in libs.items()})
 
     main_r = Renderer(full_feature(),
                       get_profile("1080p", quality=args.quality))
-    times, max_err = phase_kernel(torch, flush, thist, main_r.cam.n_bins,
-                                  main_r.cam.acc_width)
-    launches = phase_render(torch, flush, write_image, main_r,
-                            args.quality)
+    n_bins, acc_width = main_r.cam.n_bins, main_r.cam.acc_width
+    times, errs, launches = {}, {}, {}
+    times["win_flush"], errs["win_flush"] = phase_flush(
+        torch, flush, thist, "win_flush", n_bins, acc_width, 3)
+    launches["win_flush"], real_flushes = phase_render(
+        torch, flush, tit, write_image, main_r, args.quality)
+    phase_flush_mix(torch, flush, thist, real_flushes, n_bins, acc_width,
+                    tit.record_bits(main_r.key, main_r.cam, "pallas_win",
+                                    main_r.op_bits)[1])
+    del real_flushes
     for genome in (sierpinski, full_feature):
         phase_parity(torch, Renderer, RenderProfile, genome())
 
+    for name in ("packed_flush", "merged_flush"):
+        times[name], errs[name] = phase_flush(
+            torch, flush, thist, name, n_bins, acc_width, 6)
+    times["win_flush_rgb16"], errs["win_flush_rgb16"] = phase_rgb16(
+        torch, flush, n_bins, acc_width)
+    (times["bitonic_sort"], errs["bitonic_sort"],
+     launches["bitonic_sort"]) = phase_sort(torch, tiled_sort)
+    del main_r
+    for name in RENDER_BACKENDS:
+        launches[name] = phase_render_backend(
+            torch, flush, Renderer, full_feature(), get_profile, name,
+            args.quality)
+    for backend in ("pallas", "pallas_merged", "pallas_rgb16", "scatter",
+                    "scatter_sorted", "sortcum"):
+        phase_parity(torch, Renderer, RenderProfile, full_feature(),
+                     backend, phase_no=8)
+
     print(json.dumps({"kernels": [{
-        "name": "win_flush", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": times["ms"],
-        "plain_ms": times["plain_ms"]}]}))
+        "name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu",
+        "replaces": replaces, "launches": launches[name],
+        "max_abs_err": errs[name], "ms": times[name]["ms"],
+        "plain_ms": times[name]["plain_ms"],
+        "bound_ms": times[name]["bound_ms"],
+        "bound_by": times[name]["bound_by"],
+        "library_ms": times[name]["library_ms"]}
+        for name, (lib, replaces) in KERNELS.items()]}))
+    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

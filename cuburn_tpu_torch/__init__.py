@@ -2,15 +2,24 @@
 and CUDA.
 
 A port of `cuburn_tpu` (JAX on a TPU) for one NVIDIA H100.  Module
-names mirror `cuburn_tpu/`.  The host layers that never used JAX —
-`cuburn_tpu.genome`, `cuburn_tpu.models`, `cuburn_tpu.profile` and
-`cuburn_tpu.output` — are imported from there, not copied.  Plain
-tensor work is PyTorch; the kernel that carries the main path, the
-windowed histogram flush, is hand-written CUDA for sm_90a
-(`csrc/win_flush.cu`, built at first use by `kernels/build.py`).
+names mirror `cuburn_tpu/`.  The port imports nothing of `cuburn_tpu`:
+the host layers that never used JAX — `genome/`, `models/`,
+`profile.py`, `output.py` and the command line's parser — are copies
+kept here, and a genome of the JAX package crosses over through its
+JSON form (`params.genome_from_jax`).  Plain tensor work is PyTorch;
+every Pallas kernel of the JAX package has a hand-written CUDA
+counterpart for sm_90a in `csrc/`, built at first use by
+`kernels/build.py`:
+
+  win_flush.cu        windowed flush (backend pallas_win, the default)
+  scatter_flush.cu    atomic flushes (backends pallas, pallas_merged)
+  win_flush_rgb16.cu  windowed flush into f32 density + bf16 rgb
+                      (backend pallas_rgb16)
+  bitonic_sort.cu     tiled bitonic sort (ops/tiled_sort.py)
 
   device.py     — explicit device resolution; never picks CPU by itself
   params.py     — GenomeParams and iteration state as tensors
+  genome/, models/, profile.py, output.py — host layers (copies)
   ops/          — RNG, camera, variations, xforms, iterate, sort,
                   flush, histogram, filtering, density estimation
   render.py     — Renderer.render_frame: accumulate, then filter

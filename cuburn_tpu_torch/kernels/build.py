@@ -17,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -80,3 +82,19 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _LOADED[name] = lib
     return lib
+
+
+def launch(counts: dict, kernel: str, lib: str, entry: str, argtypes,
+           device, *args) -> None:
+    """One kernel launch: call C entry `entry` of csrc/<lib>.cu, which
+    launches exactly one kernel on the device's current stream (no sync)
+    and returns cudaGetLastError(), then add one to counts[kernel].
+    `argtypes` leaves out the trailing stream argument; pointers are
+    passed as ints.  Raises RuntimeError on a launch error, uncounted."""
+    fn = getattr(load(lib), entry)
+    fn.argtypes = (*argtypes, ctypes.c_void_p)
+    fn.restype = ctypes.c_int
+    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    counts[kernel] += 1

@@ -1,7 +1,7 @@
 """`cuburn-tpu-torch`: render a still frame with the PyTorch/CUDA port.
 
-The stills path of `cuburn_tpu/main.py`, reusing its argument parser
-and genome loader (neither imports JAX):
+The stills path of `cuburn_tpu/main.py`, with its own copy of that
+module's argument parser, genome loader and metrics records:
 
     cuburn-tpu-torch gallery:full_feature -o out.png --profile 1080p
     cuburn-tpu-torch genome.flam3 -o out.png --cpu
@@ -13,7 +13,157 @@ Flags for paths the port does not have yet are refused.
 
 from __future__ import annotations
 
+import argparse
+import json
 import sys
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="cuburn-tpu-torch",
+        description="fractal flame renderer (flam3/cuburn-compatible) "
+                    "on PyTorch and CUDA")
+    p.add_argument("genome",
+                   help="genome file (.flam3/.flame XML or .json), or "
+                        "gallery:<name>")
+    p.add_argument("-o", "--output", default="out.png",
+                   help="output path (.png/.jpg still, .y4m/.mp4 video)")
+    p.add_argument("--profile", default="preview",
+                   help="render profile name")
+    p.add_argument("--width", type=int, help="override profile width")
+    p.add_argument("--height", type=int, help="override profile height")
+    p.add_argument("--quality", type=int,
+                   help="override samples per output pixel")
+    p.add_argument("--ss", type=int, help="override supersampling")
+    p.add_argument("--time", type=float, default=0.0,
+                   help="genome time for stills")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--no-overlap", action="store_true",
+                   help="disable cross-frame pipeline overlap in "
+                        "--animate (overlap yields identical frames; "
+                        "disable only for per-frame device timings)")
+    p.add_argument("--animate", action="store_true",
+                   help="render the full time range as video")
+    p.add_argument("--temporal-samples", type=int,
+                   help="genome evaluations per frame (motion blur)")
+    p.add_argument("--fps", type=float,
+                   help="override profile frames per second")
+    p.add_argument("--duration", type=float,
+                   help="override animation duration in seconds")
+    p.add_argument("--hist-backend",
+                   choices=["auto", "scatter", "scatter_sorted",
+                            "sortcum", "pallas", "pallas_merged",
+                            "pallas_win", "pallas_rgb16"],
+                   help="histogram accumulation backend")
+    p.add_argument("--no-de", action="store_true",
+                   help="disable density-estimation filtering")
+    p.add_argument("--blend", metavar="GENOME2",
+                   help="build an animated edge genome sweeping from "
+                        "GENOME to GENOME2 (use with --animate)")
+    p.add_argument("--no-harmonize", action="store_true",
+                   help="skip sequence structure harmonization (one "
+                        "compile per edge instead of one total; keeps "
+                        "packed opacity records when padding would "
+                        "overflow their bit budget)")
+    p.add_argument("--loops", type=float, default=0.0,
+                   help="insert a loop segment per keyframe in"
+                        " sequences: animate-flagged xforms spin this"
+                        " many turns in place (flam3-animate loops)")
+    p.add_argument("--blend-spin", type=float, default=0.0,
+                   help="extra full camera rotations across the edge")
+    p.add_argument("--convert", action="store_true",
+                   help="convert genome to cuburn-tpu JSON and exit")
+    p.add_argument("--flame-index", type=int, default=0,
+                   help="which <flame> to use from a multi-flame file")
+    p.add_argument("--stats", action="store_true",
+                   help="print per-frame render statistics")
+    p.add_argument("--metrics-json",
+                   help="append one JSON metrics record per frame to "
+                        "this file (SURVEY.md §5 observability)")
+    p.add_argument("--devices", type=int,
+                   help="shard the frame across N local devices "
+                        "(not ported yet)")
+    p.add_argument("--reduce-scatter", action="store_true",
+                   help="with --devices N: reduce-scatter the "
+                        "histogram instead of replicating it (each "
+                        "chip owns only its filter band's block — "
+                        "~half the ICI bytes, 1/n residency; stills "
+                        "and animations, incl. motion blur; no "
+                        "checkpoints/stripes/bands)")
+    p.add_argument("--save-hist",
+                   help="write the raw f32 accumulation histogram to "
+                        "this .npy (checkpoint for high-quality stills)")
+    p.add_argument("--resume-hist",
+                   help="resume accumulation from a saved histogram")
+    p.add_argument("--stripes", type=int, default=0,
+                   help="render the frame as N horizontal sub-programs"
+                        " (exact partition; for frames whose histogram"
+                        " exceeds device limits)")
+    p.add_argument("--bands", type=int, default=0,
+                   help="filter the frame as N horizontal sub-programs"
+                        " (pairs with --stripes for frames whose full"
+                        " filter program exceeds device limits)")
+    p.add_argument("--cpu", action="store_true",
+                   help="render on the CPU (the default is the GPU, "
+                        "with no fallback)")
+    p.add_argument("--trace-dir",
+                   help="capture a profiler trace of the render into "
+                        "this directory (not ported yet)")
+    p.add_argument("--cam-angle-units", default="",
+                   choices=("", "degrees", "radians"),
+                   help="how to read cam_yaw/cam_pitch in flam3 XML "
+                        "(default: the file's cam_angle_units attr, "
+                        "else radians with a >2*pi magnitude warning)")
+    return p
+
+
+def _append_metrics(path, record):
+    with open(path, "a") as f:
+        f.write(json.dumps(record) + "\n")
+
+
+def _stats_record(frame_idx, t, stats):
+    return {
+        "frame": frame_idx, "time": t,
+        "plotted_samples": stats.plotted_samples,
+        "total_iters": stats.total_iters,
+        "retention": round(stats.retention, 4),
+        "samples_per_sec": round(stats.samples_per_sec, 1),
+        "iterate_ms": round(stats.iterate_s * 1e3, 2),
+        "filter_ms": round(stats.filter_s * 1e3, 2),
+    }
+
+
+def load_genome(spec: str, index: int, angle_units: str = ""):
+    from cuburn_tpu_torch.genome.convert import load_genomes
+    from cuburn_tpu_torch.models import get_genome
+    if spec.startswith("gallery:"):
+        try:
+            return get_genome(spec.split(":", 1)[1])
+        except ValueError as e:
+            raise SystemExit(str(e))
+    if spec.startswith("random:"):
+        # flam3-genome-style deterministic random flame
+        from cuburn_tpu_torch.genome.randgen import random_genome
+        try:
+            seed_val = int(spec.split(":", 1)[1])
+        except ValueError:
+            raise SystemExit(f"random:<seed> needs an integer, "
+                             f"got {spec!r}")
+        return random_genome(seed_val)
+    try:
+        genomes = load_genomes(spec, angle_units=angle_units)
+    except FileNotFoundError:
+        raise SystemExit(f"genome file not found: {spec}")
+    except Exception as e:
+        raise SystemExit(f"could not parse {spec}: "
+                         f"{type(e).__name__}: {e}")
+    if not genomes:
+        raise SystemExit(f"no genomes found in {spec}")
+    if index >= len(genomes):
+        raise SystemExit(
+            f"flame index {index} out of range ({len(genomes)} found)")
+    return genomes[index]
 
 
 def _refuse_unported(args) -> None:
@@ -34,13 +184,7 @@ def _refuse_unported(args) -> None:
 
 
 def main(argv=None) -> int:
-    from cuburn_tpu.main import (_append_metrics, _stats_record,
-                                 build_parser, load_genome)
-    parser = build_parser()
-    parser.prog = "cuburn-tpu-torch"
-    parser.description = ("fractal flame renderer (flam3/cuburn-"
-                          "compatible) on PyTorch and CUDA")
-    args = parser.parse_args(argv)
+    args = build_parser().parse_args(argv)
     _refuse_unported(args)
 
     genome = load_genome(args.genome, args.flame_index,
@@ -51,8 +195,8 @@ def main(argv=None) -> int:
 
     import numpy as np
 
-    from cuburn_tpu import output as output_mod
-    from cuburn_tpu.profile import get_profile
+    from cuburn_tpu_torch import output as output_mod
+    from cuburn_tpu_torch.profile import get_profile
     from cuburn_tpu_torch.device import resolve_device
     from cuburn_tpu_torch.render import Renderer
 

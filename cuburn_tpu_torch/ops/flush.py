@@ -1,14 +1,23 @@
-"""Windowed histogram flush: sorted packed records -> histogram.
+"""Histogram flushes of packed records: the ports of the Pallas flushes.
 
-Port of `cuburn_tpu/ops/pallas_hist.py::accumulate_windowed_pallas`
-and its Pallas kernel `_win_kernel`.  On a CUDA tensor the flush sorts
-the records (`torch.sort`) and launches the hand-written kernel in
-`csrc/win_flush.cu`; on a CPU tensor it runs the plain PyTorch version
-beside it, `accumulate_windowed_reference`.  A CUDA tensor never falls
-back to the plain version: the kernel launches or the call raises.
+Port of `cuburn_tpu/ops/pallas_hist.py`.  Each flush has a wrapper that
+launches a hand-written CUDA kernel on a CUDA tensor and runs its plain
+PyTorch version, in this module, on a CPU tensor.  A CUDA tensor never
+falls back to the plain version: the kernel launches or the call
+raises.
 
-Both update the logical (n_bins + 1, 4) histogram IN PLACE, like the
-JAX package's in-place mode, and both add into the junk bin.
+  backend        wrapper                    kernel (csrc/)
+  pallas_win     accumulate_windowed        win_flush.cu
+  pallas         accumulate_packed          scatter_flush.cu (packed)
+  pallas_merged  accumulate_merged          scatter_flush.cu (merged)
+  pallas_rgb16   accumulate_windowed_rgb16  win_flush_rgb16.cu
+
+All but the last update the logical (n_bins + 1, 4) float32 histogram
+IN PLACE, like the JAX package's in-place mode; `pallas_rgb16` updates
+the split layout (density (n_bins + 1,) float32, rgb (n_bins + 1, 3)
+bfloat16) in place.  Every flush adds into the junk bin, and clamps
+addresses past it onto it.  `LAUNCHES` counts each wrapper's kernel
+launches in this process; callers reset it to count a run.
 """
 
 from __future__ import annotations
@@ -18,15 +27,35 @@ import ctypes
 import torch
 
 from cuburn_tpu_torch.kernels import build as _build
-from cuburn_tpu_torch.ops.sort import SENTINEL, sort_records
+from cuburn_tpu_torch.ops.sort import (SENTINEL, merge_sorted_records,
+                                       sort_records)
 
-# Launches of the CUDA kernel in this process: one per flush that went
-# through win_flush.cu.  Callers reset it to count a run.
-LAUNCHES = 0
+# kernel name -> CUDA kernel launches through its wrapper: one per
+# flush for all but win_flush_rgb16, which launches two (its runs and
+# carry passes)
+LAUNCHES = {"win_flush": 0, "packed_flush": 0, "merged_flush": 0,
+            "win_flush_rgb16": 0}
 
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int64, ctypes.c_float,
-             ctypes.c_void_p, ctypes.c_void_p)
+_P, _I64, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+# C entry -> (library, kernel it counts under, argtypes before the
+# stream); every entry launches one kernel and returns cudaGetLastError()
+_ENTRIES = {
+    "win_flush": ("win_flush", "win_flush",
+                  (_P, _I64, _P, ctypes.c_int, _I64, _F, _P)),
+    "packed_flush": ("scatter_flush", "packed_flush",
+                     (_P, _I64, _P, ctypes.c_int, _I64, _F, _P)),
+    "merged_flush": ("scatter_flush", "merged_flush",
+                     (_P, _P, _I64, _P, ctypes.c_int, _I64, _F, _P)),
+    "win_flush_rgb16_runs": ("win_flush_rgb16", "win_flush_rgb16",
+                             (_P, _I64, _P, ctypes.c_int, _I64, _F, _P, _P,
+                              _P)),
+    "win_flush_rgb16_carry": ("win_flush_rgb16", "win_flush_rgb16",
+                              (_P, _I64, ctypes.c_int, _I64, _F, _P, _P,
+                               _P)),
+}
+# records per thread of win_flush_rgb16.cu (its kRun): one carry row
+# per chunk of this many sorted records
+RGB16_RUN = 16
 
 
 def _pal4(palette_hi: torch.Tensor) -> torch.Tensor:
@@ -38,25 +67,92 @@ def _pal4(palette_hi: torch.Tensor) -> torch.Tensor:
     return torch.cat([palette_hi, ones], dim=1)
 
 
-def _check(hist, packed_records, palette_hi, n_bins, color_bits):
-    if hist.dtype != torch.float32 or hist.shape != (n_bins + 1, 4) \
-            or not hist.is_contiguous():
-        raise ValueError(
-            f"hist must be a contiguous float32 ({n_bins + 1}, 4) tensor, "
-            f"got {hist.dtype} {tuple(hist.shape)}")
+def _check_inputs(packed_records, palette_hi, color_bits, *tensors):
+    """Records are int64 holding u32 values `addr << color_bits | q`.
+    0xFFFFFFFF is the sort's padding sentinel, which the sorted flushes
+    skip; it is never a record of a render, since `color_bits_for`
+    keeps every record below it.  The value range is checked on the CPU
+    only: on the card the check would cost a sync per flush."""
     if packed_records.dtype != torch.int64:
         raise ValueError("packed records must be int64 (u32 values), "
                          f"got {packed_records.dtype}")
+    if packed_records.device.type == "cpu" and packed_records.numel() \
+            and (int(packed_records.min()) < 0
+                 or int(packed_records.max()) > SENTINEL):
+        raise ValueError("packed records must be u32 values, got "
+                         f"[{int(packed_records.min())}, "
+                         f"{int(packed_records.max())}]")
     if palette_hi.dtype != torch.float32 or palette_hi.dim() != 2 \
             or palette_hi.shape[1] not in (3, 4) \
             or palette_hi.shape[0] != 1 << color_bits:
         raise ValueError(
             f"palette must be float32 ({1 << color_bits}, 3 or 4), got "
             f"{palette_hi.dtype} {tuple(palette_hi.shape)}")
-    devices = {hist.device, packed_records.device, palette_hi.device}
+    devices = {t.device for t in (packed_records, palette_hi, *tensors)}
     if len(devices) != 1:
         raise ValueError(f"tensors on different devices: {devices}")
 
+
+def _check(hist, packed_records, palette_hi, n_bins, color_bits):
+    if hist.dtype != torch.float32 or hist.shape != (n_bins + 1, 4) \
+            or not hist.is_contiguous():
+        raise ValueError(
+            f"hist must be a contiguous float32 ({n_bins + 1}, 4) tensor, "
+            f"got {hist.dtype} {tuple(hist.shape)}")
+    _check_inputs(packed_records, palette_hi, color_bits, hist)
+
+
+def _check_split(hist_split, packed_records, palette_hi, n_bins,
+                 color_bits):
+    dens, rgb = hist_split
+    if dens.dtype != torch.float32 or dens.shape != (n_bins + 1,) \
+            or not dens.is_contiguous():
+        raise ValueError(
+            f"split density must be a contiguous float32 ({n_bins + 1},) "
+            f"tensor, got {dens.dtype} {tuple(dens.shape)}")
+    if rgb.dtype != torch.bfloat16 or rgb.shape != (n_bins + 1, 3) \
+            or not rgb.is_contiguous():
+        raise ValueError(
+            f"split rgb must be a contiguous bfloat16 ({n_bins + 1}, 3) "
+            f"tensor, got {rgb.dtype} {tuple(rgb.shape)}")
+    _check_inputs(packed_records, palette_hi, color_bits, dens, rgb)
+
+
+def _device_of(t: torch.Tensor) -> str:
+    """'cpu' or 'cuda'; raises for any other device."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+def _weight(weight) -> float:
+    return 1.0 if weight is None else float(weight)
+
+
+def _add_rows(hist, recs, palette_hi, n_bins, color_bits, counts, w):
+    """hist[min(addr, n_bins)] += w * counts * pal4[q], in place."""
+    addr = torch.clamp(recs >> color_bits, max=n_bins)
+    rows = _pal4(palette_hi)[recs & ((1 << color_bits) - 1)]
+    if counts is not None:
+        rows = rows * counts.to(torch.float32)[:, None]
+    return hist.index_add_(0, addr, rows, alpha=w)
+
+
+def _launch(entry: str, device, *args):
+    """One launch of C entry `entry` on the device's current stream (no
+    sync), counted in LAUNCHES under its kernel."""
+    lib, kernel, argtypes = _ENTRIES[entry]
+    _build.launch(LAUNCHES, kernel, lib, entry, argtypes, device, *args)
+
+
+def _aligned_pal4(palette_hi):
+    """Contiguous (K, 4) palette rows on a 16-byte boundary (the kernels
+    read rows as float4)."""
+    pal4 = _pal4(palette_hi).contiguous()
+    return pal4.clone() if pal4.data_ptr() % 16 else pal4
+
+
+# -- pallas_win: sorted records, one add per sorted run --------------------
 
 def accumulate_windowed_reference(hist, packed_records, palette_hi,
                                   n_bins: int, color_bits: int,
@@ -66,28 +162,8 @@ def accumulate_windowed_reference(hist, packed_records, palette_hi,
     Updates hist in place; returns it."""
     _check(hist, packed_records, palette_hi, n_bins, color_bits)
     recs = sort_records(packed_records)
-    count = (recs != SENTINEL).to(torch.float32)
-    addr = torch.clamp(recs >> color_bits, max=n_bins)
-    q = recs & ((1 << color_bits) - 1)
-    rows = _pal4(palette_hi)[q] * count[:, None]
-    w = 1.0 if weight is None else float(weight)
-    return hist.index_add_(0, addr, rows, alpha=w)
-
-
-def _launch(hist, sorted_records, pal4, n_bins, color_bits, weight):
-    """One win_flush.cu launch on the current stream (no sync)."""
-    global LAUNCHES
-    lib = _build.load("win_flush")
-    fn = lib.win_flush
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(hist.device).cuda_stream
-    err = fn(sorted_records.data_ptr(), sorted_records.numel(),
-             pal4.data_ptr(), color_bits, n_bins, weight,
-             hist.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"win_flush launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    return _add_rows(hist, recs, palette_hi, n_bins, color_bits,
+                     recs != SENTINEL, _weight(weight))
 
 
 def accumulate_windowed(hist, packed_records, palette_hi, n_bins: int,
@@ -98,19 +174,172 @@ def accumulate_windowed(hist, packed_records, palette_hi, n_bins: int,
     4-column opacity-extended row as it is) into bin addr.
 
     CPU tensors take the plain version; CUDA tensors sort with
-    torch.sort and launch the CUDA kernel, which adds weight times
-    each sorted run's sum.  Density is exact at weight 1.0 with a
-    3-column palette; rgb agrees within float32 reassociation."""
+    torch.sort and launch win_flush.cu, which adds weight times each
+    sorted run's sum.  Density is exact at weight 1.0 with a 3-column
+    palette; rgb agrees within float32 reassociation."""
     _check(hist, packed_records, palette_hi, n_bins, color_bits)
-    if hist.device.type == "cpu":
+    if _device_of(hist) == "cpu":
         return accumulate_windowed_reference(
             hist, packed_records, palette_hi, n_bins, color_bits, weight)
-    if hist.device.type != "cuda":
-        raise ValueError(f"unsupported device {hist.device}")
-    pal4 = _pal4(palette_hi).contiguous()
-    if pal4.data_ptr() % 16:
-        pal4 = pal4.clone()     # the kernel reads rows as float4
+    pal4 = _aligned_pal4(palette_hi)
     recs = sort_records(packed_records).contiguous()
-    w = 1.0 if weight is None else float(weight)
-    _launch(hist, recs, pal4, n_bins, color_bits, w)
+    _launch("win_flush", hist.device, recs.data_ptr(), recs.numel(),
+            pal4.data_ptr(), color_bits, n_bins, _weight(weight),
+            hist.data_ptr())
     return hist
+
+
+# -- pallas: unsorted records, one atomic add per record -------------------
+
+def accumulate_packed_reference(hist, packed_records, palette_hi,
+                                n_bins: int, color_bits: int,
+                                weight=None):
+    """The plain flush of unsorted records: unpack, then index_add_ of
+    weight * pal4[q] per record.  Updates hist in place; returns it."""
+    _check(hist, packed_records, palette_hi, n_bins, color_bits)
+    return _add_rows(hist, packed_records.reshape(-1), palette_hi, n_bins,
+                     color_bits, None, _weight(weight))
+
+
+def accumulate_packed(hist, packed_records, palette_hi, n_bins: int,
+                      color_bits: int, weight=None):
+    """Flush unsorted packed records into the logical histogram IN
+    PLACE: each record adds weight * pal4[q] into bin addr, in no
+    particular order (`accumulate_packed_pallas`, backend `pallas`).
+    CUDA tensors launch scatter_flush.cu's packed entry (one float4
+    atomicAdd per record); density is exact at weight 1.0 with a
+    3-column palette, since its sums are integer counts."""
+    _check(hist, packed_records, palette_hi, n_bins, color_bits)
+    if _device_of(hist) == "cpu":
+        return accumulate_packed_reference(
+            hist, packed_records, palette_hi, n_bins, color_bits, weight)
+    pal4 = _aligned_pal4(palette_hi)
+    recs = packed_records.reshape(-1).contiguous()
+    if recs.numel():        # the sorted flushes always get >= 1 record
+        _launch("packed_flush", hist.device, recs.data_ptr(),
+                recs.numel(), pal4.data_ptr(), color_bits, n_bins,
+                _weight(weight), hist.data_ptr())
+    return hist
+
+
+# -- pallas_merged: sort, run-merge, one add per unique record -------------
+
+def merge_records(packed_records, n_bins: int, color_bits: int):
+    """sort_records, then merge_sorted_records: (unique records, int32
+    counts), uniques first, padded with the junk record at count 0.
+    The power-of-two padding's sentinels merge into one record, whose
+    count is zeroed here."""
+    uniq, counts = merge_sorted_records(sort_records(packed_records),
+                                        n_bins << color_bits)
+    return uniq, torch.where(uniq == SENTINEL, 0, counts)
+
+
+def accumulate_merged_reference(hist, packed_records, palette_hi,
+                                n_bins: int, color_bits: int,
+                                weight=None):
+    """The plain merged flush: merge_records, then index_add_ of
+    weight * count * pal4[q] per unique record.  In place."""
+    _check(hist, packed_records, palette_hi, n_bins, color_bits)
+    uniq, counts = merge_records(packed_records, n_bins, color_bits)
+    return _add_rows(hist, uniq, palette_hi, n_bins, color_bits, counts,
+                     _weight(weight))
+
+
+def accumulate_merged(hist, packed_records, palette_hi, n_bins: int,
+                      color_bits: int, weight=None):
+    """Sort + run-merge + count-weighted flush IN PLACE
+    (`accumulate_merged_pallas`, backend `pallas_merged`): duplicate
+    records collapse into one update of count * pal4[q].  CUDA tensors
+    merge with torch ops and launch scatter_flush.cu's merged entry
+    (one float4 atomicAdd per unique record, count 0 skipped)."""
+    _check(hist, packed_records, palette_hi, n_bins, color_bits)
+    if _device_of(hist) == "cpu":
+        return accumulate_merged_reference(
+            hist, packed_records, palette_hi, n_bins, color_bits, weight)
+    pal4 = _aligned_pal4(palette_hi)
+    uniq, counts = merge_records(packed_records, n_bins, color_bits)
+    uniq, counts = uniq.contiguous(), counts.contiguous()
+    _launch("merged_flush", hist.device, uniq.data_ptr(),
+            counts.data_ptr(), uniq.numel(), pal4.data_ptr(), color_bits,
+            n_bins, _weight(weight), hist.data_ptr())
+    return hist
+
+
+# -- pallas_rgb16: sorted records into f32 density + bf16 rgb --------------
+
+def alloc_split(n_bins: int, device):
+    """A zeroed split histogram: (density (n_bins+1,) float32, rgb
+    (n_bins+1, 3) bfloat16)."""
+    return (torch.zeros((n_bins + 1,), dtype=torch.float32, device=device),
+            torch.zeros((n_bins + 1, 3), dtype=torch.bfloat16,
+                        device=device))
+
+
+def to_split_layout(hist):
+    """Logical (n_bins+1, 4) float32 -> split (density, bf16 rgb): rgb
+    is rounded to bf16 once, density is kept as it is."""
+    return (hist[:, 3].contiguous(),
+            hist[:, :3].to(torch.bfloat16).contiguous())
+
+
+def from_split_layout(dens, rgb):
+    """Split (density, bf16 rgb) -> logical (n_bins+1, 4) float32."""
+    return torch.cat([rgb.to(torch.float32), dens[:, None]], dim=1)
+
+
+def accumulate_windowed_rgb16_reference(hist_split, packed_records,
+                                        palette_hi, n_bins: int,
+                                        color_bits: int, weight=None):
+    """The plain split flush: every bin's records summed in float32
+    (sentinels count 0), then density += weight * sum and rgb =
+    bf16(f32(rgb) + weight * sum), one rounding per bin per flush.
+    Bins without records keep their value exactly.  In place; returns
+    (dens, rgb)."""
+    _check_split(hist_split, packed_records, palette_hi, n_bins,
+                 color_bits)
+    dens, rgb = hist_split
+    recs = packed_records.reshape(-1)
+    sums = _add_rows(dens.new_zeros((n_bins + 1, 4)), recs, palette_hi,
+                     n_bins, color_bits, recs != SENTINEL, 1.0)
+    w = _weight(weight)
+    dens.add_(sums[:, 3], alpha=w)
+    rgb.copy_(torch.add(rgb.to(torch.float32), sums[:, :3], alpha=w))
+    return dens, rgb
+
+
+def accumulate_windowed_rgb16(hist_split, packed_records, palette_hi,
+                              n_bins: int, color_bits: int, weight=None):
+    """Windowed flush over the split histogram, IN PLACE
+    (`accumulate_windowed_pallas_rgb16`, backend `pallas_rgb16`).
+    Density never leaves float32, so it stays exact at weight 1.0 with
+    a 3-column palette; rgb is rounded to bf16 once per touched bin per
+    flush, never once per record.  CUDA tensors sort with torch.sort and
+    launch win_flush_rgb16.cu, which sums each sorted run in float32 and
+    writes its bin once.  Returns (dens, rgb)."""
+    _check_split(hist_split, packed_records, palette_hi, n_bins,
+                 color_bits)
+    dens, rgb = hist_split
+    if _device_of(dens) == "cpu":
+        return accumulate_windowed_rgb16_reference(
+            hist_split, packed_records, palette_hi, n_bins, color_bits,
+            weight)
+    pal4 = _aligned_pal4(palette_hi)
+    recs = sort_records(packed_records).contiguous()
+    carry = torch.zeros((-(-recs.numel() // RGB16_RUN), 4),
+                        dtype=torch.float32, device=dens.device)
+    rgb16_launch(recs, pal4, color_bits, n_bins, _weight(weight), dens,
+                 rgb, carry)
+    return dens, rgb
+
+
+def rgb16_launch(recs, pal4, color_bits: int, n_bins: int, weight: float,
+                 dens, rgb, carry):
+    """win_flush_rgb16.cu's two passes over sorted records `recs`, with
+    `carry` a zeroed (ceil(n / RGB16_RUN), 4) float32 scratch."""
+    n = recs.numel()
+    _launch("win_flush_rgb16_runs", dens.device, recs.data_ptr(), n,
+            pal4.data_ptr(), color_bits, n_bins, weight, dens.data_ptr(),
+            rgb.data_ptr(), carry.data_ptr())
+    _launch("win_flush_rgb16_carry", dens.device, recs.data_ptr(), n,
+            color_bits, n_bins, weight, dens.data_ptr(), rgb.data_ptr(),
+            carry.data_ptr())

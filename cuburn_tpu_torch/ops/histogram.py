@@ -6,13 +6,19 @@ density per bin, float32, with a junk bin at index n_bins that
 receives masked and out-of-bounds points.  Density can pass 2^24, so
 the histogram is always f32.
 
-The registry holds `scatter` only.  The windowed flush (`pallas_win`)
-consumes packed records and lives in `ops/flush.py`.
+The registry holds the XLA backends of the JAX package, as plain
+PyTorch: `scatter` (index_add_), `scatter_sorted` (sort by address,
+then index_add_) and `sortcum` (sort, prefix sums, run-end placement,
+running max, difference: no scatter-add at all).  None is a kernel.
+Every backend updates `hist` in place and returns it.  The flushes of
+packed records (`pallas`, `pallas_merged`, `pallas_win`,
+`pallas_rgb16`) live in `ops/flush.py`.
 """
 
 from __future__ import annotations
 
 import torch
+
 
 def alloc(n_bins: int, device: torch.device | str) -> torch.Tensor:
     """A zeroed histogram with its junk bin."""
@@ -31,8 +37,46 @@ def accumulate_scatter(hist, addr, rgba):
     return hist.index_add_(0, addr.reshape(-1), rgba.reshape(-1, 4))
 
 
+def _sort_by_addr(addr, rgba):
+    """(addr, rgba) flattened and stably sorted by address."""
+    flat_addr = addr.reshape(-1)
+    order = torch.sort(flat_addr, stable=True).indices
+    return flat_addr[order], rgba.reshape(-1, 4)[order]
+
+
+def accumulate_scatter_sorted(hist, addr, rgba):
+    """Sort rows by address, then index_add_ them in that order: the
+    JAX package's sort + `indices_are_sorted` scatter.  Exact: each
+    bin's adds are a reordering of the same f32 values."""
+    sa, rows = _sort_by_addr(addr, rgba)
+    return hist.index_add_(0, sa, rows)
+
+
+def accumulate_sortcum(hist, addr, rgba):
+    """Scatter-free accumulation: sort by address, per-channel prefix
+    sums, the prefix sum at each run end copied to its bin, gaps filled
+    with a running maximum (prefix sums of nonnegative mass are
+    monotone), then adjacent bins differenced.  Error is the prefix
+    sums' rounding, O(ulp(flush mass)) per bin."""
+    n_bins_p1 = hist.shape[0]
+    sa, rows = _sort_by_addr(addr, rgba)
+    csum = torch.cumsum(rows, dim=0)
+    is_end = torch.ones_like(sa, dtype=torch.bool)
+    is_end[:-1] = sa[:-1] != sa[1:]
+    # run ends have unique addresses; every other row goes to a spare
+    # slot past the end, which is cut off
+    idx = torch.where(is_end, sa, n_bins_p1)
+    dense = hist.new_zeros((n_bins_p1 + 1, 4)).index_copy_(
+        0, idx, csum)[:n_bins_p1]
+    filled = torch.cummax(dense, dim=0).values
+    return hist.add_(torch.diff(filled, dim=0,
+                                prepend=filled.new_zeros((1, 4))))
+
+
 BACKENDS = {
     "scatter": accumulate_scatter,
+    "scatter_sorted": accumulate_scatter_sorted,
+    "sortcum": accumulate_sortcum,
 }
 
 

@@ -24,11 +24,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from cuburn_tpu.genome.specs import StructureKey
+from cuburn_tpu_torch.genome.specs import StructureKey
+from cuburn_tpu_torch.ops import flush as flush_mod
 from cuburn_tpu_torch.ops import histogram as hist_mod
 from cuburn_tpu_torch.ops import rng as rng_mod
 from cuburn_tpu_torch.ops.camera import CameraSpec, project, project_3d
-from cuburn_tpu_torch.ops.flush import accumulate_windowed
 from cuburn_tpu_torch.ops.xform import (apply_final_xform, apply_xforms,
                                         build_xform_table,
                                         select_and_fetch)
@@ -223,17 +223,28 @@ def iterate_step(key: StructureKey, cam: CameraSpec, fuse: int, params,
     return new_state, addr, pcolor, opacity
 
 
+# packed-record flushes by backend (ops/flush.py); the others go
+# through ops/histogram.py on unpacked (addr, rgba) rows
+PACKED_FLUSHES = {
+    "pallas": flush_mod.accumulate_packed,
+    "pallas_merged": flush_mod.accumulate_merged,
+    "pallas_win": flush_mod.accumulate_windowed,
+    "pallas_rgb16": flush_mod.accumulate_windowed_rgb16,
+}
+WINDOWED = ("pallas_win", "pallas_rgb16")
+
+
 def record_bits(key: StructureKey, cam: CameraSpec, backend: str,
                 op_bits: int = 0):
     """(color bits, total bits below the address) of the packed
     records: the opacity-extended split when op_bits, else
-    color_bits_for capped at 8 for the windowed flush (flam3's native
+    color_bits_for, capped at 8 for the windowed flushes (flam3's native
     palette resolution; also keeps records bit-identical to JAX's)."""
     if op_bits:
         _ob, cbits = opacity_bits_for(cam.layout_bins, key.n_xforms)
         return cbits, op_bits + cbits
     cbits = color_bits_for(cam.layout_bins)
-    if backend == "pallas_win" and cbits:
+    if backend in WINDOWED and cbits:
         cbits = min(cbits, 8)
     return cbits, cbits
 
@@ -245,9 +256,11 @@ def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
     """Advance n_chunks * iters_per_flush steps, flushing packed
     records into `hist` (updated in place) once per chunk.
 
-    `backend` is "pallas_win" (the windowed flush, ops/flush.py) or
-    "scatter" (unpack + index_add_).  `op_bits` enables the
-    opacity-extended record.  Returns (new_state, hist, plotted) with
+    `backend` is a packed-record flush of ops/flush.py (`pallas`,
+    `pallas_merged`, `pallas_win`, or `pallas_rgb16` on the split
+    layout of hist_alloc_for) or an ops/histogram.py backend on
+    unpacked rows (`scatter`, `scatter_sorted`, `sortcum`).  `op_bits`
+    enables the opacity-extended record.  Returns (new_state, hist, plotted) with
     plotted a float32 device scalar, as the JAX counterpart's f32
     counter."""
     cbits, tot_bits = record_bits(key, cam, backend, op_bits)
@@ -255,8 +268,8 @@ def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
         raise NotImplementedError(
             "records do not pack into 32 bits; the unpacked (addr, rgba) "
             "path is not ported yet (ROADMAP.md queue A)")
-    if backend == "pallas_win":
-        flush = accumulate_windowed
+    if backend in PACKED_FLUSHES:
+        flush = PACKED_FLUSHES[backend]
     else:
         scatter = hist_mod.get_backend(backend)
 
@@ -289,11 +302,24 @@ def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
 
 
 def hist_alloc_for(backend: str, n_bins: int, device):
-    """The histogram in the layout the backend accumulates into: the
-    logical (n_bins+1, 4) layout for every backend of the port."""
+    """The zeroed histogram in the layout the backend accumulates into:
+    the split (density f32, rgb bf16) pair for pallas_rgb16, the
+    logical (n_bins+1, 4) float32 tensor for every other backend."""
+    if backend == "pallas_rgb16":
+        return flush_mod.alloc_split(n_bins, device)
     return hist_mod.alloc(n_bins, device)
 
 
+def hist_to_layout(backend: str, hist):
+    """Logical (n_bins+1, 4) -> the backend's layout.  The split layout
+    rounds rgb to bf16 once."""
+    if backend == "pallas_rgb16":
+        return flush_mod.to_split_layout(hist)
+    return hist
+
+
 def hist_to_logical(backend: str, hist, n_bins: int):
-    """Backend layout -> logical (n_bins+1, 4): the identity here."""
+    """Backend layout -> logical (n_bins+1, 4) float32."""
+    if backend == "pallas_rgb16":
+        return flush_mod.from_split_layout(*hist)
     return hist

@@ -17,7 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from cuburn_tpu.genome.specs import StructureKey
+from cuburn_tpu_torch.genome.specs import StructureKey
 from cuburn_tpu_torch.ops import variations as V
 from cuburn_tpu_torch.ops.rng import RngStream
 

@@ -1,10 +1,11 @@
 """Genome values and trajectory state as tensors.
 
 `params_from_genome` carries `Genome.eval_at(t)`'s numpy leaves onto a
-device (the JAX package moved the same pytree with `jnp.asarray`).
+device (the JAX package moved the same record with `jnp.asarray`).
 `state_from_numpy` builds the port's `IterState` from the leaves of a
-JAX `IterState`, so tests can run both packages from the same
-trajectories.
+JAX `IterState`, and `genome_from_jax` carries a JAX package genome
+across as the port's own, so tests can run both packages from the same
+genome and trajectories.
 """
 
 from __future__ import annotations
@@ -14,8 +15,19 @@ import dataclasses
 import numpy as np
 import torch
 
-from cuburn_tpu.genome.specs import GenomeParams
+from cuburn_tpu_torch.genome.specs import Genome, GenomeParams
 from cuburn_tpu_torch.ops.iterate import IterState
+
+
+def genome_from_jax(genome) -> Genome:
+    """The port's Genome equal to a JAX package Genome (or anything with
+    its `to_json` and `palettes`): through the shared JSON form, with
+    the palette keyframes copied as they are, since JSON stores them
+    as 8-bit hex."""
+    out = Genome.from_json(genome.to_json())
+    out.palettes = [(float(t), np.array(p, np.float64))
+                    for t, p in genome.palettes]
+    return out
 
 
 def params_from_genome(params: GenomeParams, device) -> GenomeParams:

@@ -8,8 +8,10 @@ Port of `cuburn_tpu/render.py` for one device.  Per frame:
   logscale -> density estimation -> downsample -> colorclip -> u8
   u8 readback                                           [host]
 
-The histogram is the logical (n_bins+1, 4) float32 tensor on the
-device; it is also the checkpoint format shared with the JAX package.
+The histogram a caller sees is the logical (n_bins+1, 4) float32
+tensor on the device; it is also the checkpoint format shared with the
+JAX package.  The `pallas_rgb16` backend accumulates into its split
+layout (f32 density, bf16 rgb) and converts at the edges.
 """
 
 from __future__ import annotations
@@ -24,27 +26,28 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from cuburn_tpu.genome.specs import Genome
-from cuburn_tpu.profile import RenderProfile
 from cuburn_tpu_torch.device import resolve_device
+from cuburn_tpu_torch.genome.specs import Genome
 from cuburn_tpu_torch.ops import de as de_mod
 from cuburn_tpu_torch.ops import histogram as hist_mod
 from cuburn_tpu_torch.ops.camera import CameraSpec
 from cuburn_tpu_torch.ops.filtering import (colorclip, downsample,
                                             logscale,
                                             spatial_filter_taps, to_u8)
-from cuburn_tpu_torch.ops.iterate import (color_bits_for, hist_alloc_for,
+from cuburn_tpu_torch.ops.iterate import (PACKED_FLUSHES, color_bits_for,
+                                          hist_alloc_for, hist_to_layout,
                                           hist_to_logical, init_state,
                                           iterate_accumulate,
                                           opacity_bits_for,
                                           xform_cdf_rows)
 from cuburn_tpu_torch.ops.variations import VARIATION_IMPLS
 from cuburn_tpu_torch.params import params_from_genome
+from cuburn_tpu_torch.profile import RenderProfile
 from cuburn_tpu_torch.utils.timing import sync
 
-# JAX-package backends that have no port yet (ROADMAP.md queue B)
-_UNPORTED_BACKENDS = ("pallas", "pallas_merged", "pallas_rgb16",
-                      "sortcum", "scatter_sorted")
+# every histogram backend of the JAX package: the packed-record
+# flushes of ops/flush.py and the XLA backends of ops/histogram.py
+BACKENDS = (*PACKED_FLUSHES, *hist_mod.BACKENDS)
 # Records per flush = batch * iters_per_chunk.  Provisional: the JAX
 # package's default, until an H100 sweep of the flush size sets it.
 DEFAULT_ITERS_PER_CHUNK = 32
@@ -131,9 +134,10 @@ class Renderer:
 
     `device` defaults to CUDA and raises when there is no GPU; the
     CPU runs only when asked for by name ("cpu").  The histogram
-    backend follows the JAX package's names: `auto` is `pallas_win`
-    (the windowed flush, a CUDA kernel) on a GPU and `scatter` on the
-    CPU; `pallas_win` on the CPU runs the flush's plain version."""
+    backend follows the JAX package's names (`BACKENDS`): `auto` is
+    `pallas_win` (the windowed flush, a CUDA kernel) on a GPU and
+    `scatter` on the CPU.  Each `pallas*` backend launches its CUDA
+    kernel on a GPU and runs the kernel's plain version on the CPU."""
 
     def __init__(self, genome: Genome, profile: RenderProfile,
                  device: torch.device | str | None = None):
@@ -194,12 +198,9 @@ class Renderer:
         if backend == "auto":
             backend = ("pallas_win" if self.device.type == "cuda"
                        else "scatter")
-        elif backend in _UNPORTED_BACKENDS:
-            raise NotImplementedError(
-                f"histogram backend {backend!r} is not ported yet "
-                "(ROADMAP.md queue B)")
-        elif backend not in ("scatter", "pallas_win"):
-            raise ValueError(f"unknown histogram backend {backend!r}")
+        elif backend not in BACKENDS:
+            raise ValueError(f"unknown histogram backend {backend!r}; "
+                             f"have {sorted(BACKENDS)}")
         self.backend = backend
         self.profile = dataclasses.replace(
             profile, iters_per_chunk=self._resolve_iters_per_chunk(
@@ -224,7 +225,8 @@ class Renderer:
                      ) -> Tuple[np.ndarray, FrameStats]:
         """Render one frame at genome time t.  Returns (u8 image
         (H, W, 4), FrameStats).  `hist0` resumes accumulation from a
-        logical (n_bins+1, 4) histogram."""
+        logical (n_bins+1, 4) histogram (pallas_rgb16 rounds its rgb
+        to bf16 once, on the way into the split layout)."""
         hist, stats = self.accumulate(t, seed, hist0)
         img = self.finalize_frame(hist, t, stats)
         return img, stats
@@ -249,7 +251,8 @@ class Renderer:
                          hist0: Optional[np.ndarray] = None):
         """Queue one frame's accumulation without waiting for it.
 
-        Returns (hist, plotted-count device scalar, total_iters int).
+        Returns (hist in the backend's layout, plotted-count device
+        scalar, total_iters int).
         A `hist0` costs one readback of its mass, which is mixed into
         the seed so a resumed pass adds fresh samples instead of
         replaying the same trajectories."""
@@ -264,6 +267,7 @@ class Renderer:
                     f"{(cam.n_bins + 1, 4)}")
             mass = int(min(float(hist[:, 3].sum()), 2.0 ** 62))
             eff_seed = (eff_seed ^ (mass * 0x9E3779B9)) & 0x7FFFFFFF
+            hist = hist_to_layout(self.backend, hist)
         else:
             hist = hist_alloc_for(self.backend, cam.n_bins, self.device)
         (t_s,), _weights, _sumfilt = self._temporal_times(t)

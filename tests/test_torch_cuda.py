@@ -1,15 +1,16 @@
-"""The port on the GPU: the CUDA flush kernel against its plain
-version, no fallback when the kernel cannot be built, and renders that
-go through the kernel.
+"""The port on the GPU: every CUDA kernel against its plain version, no
+fallback when a kernel cannot be built, and renders that go through
+the kernels.
 
 Every test here carries the `cuda` marker and skips on hosts without
-a GPU.  The file imports no JAX, so it runs as it is on the GPU
-machine:  python -m pytest tests/test_torch_cuda.py -q
-Contracts as in test_torch_flush.py: density exact with a 3-column
-palette at weight 1.0, every channel within 1e-5 of the bin's density
-otherwise; a render on the GPU and on the CPU from the same seed (the
-same starting trajectories) agree by TV distance under the CPU's
-two-seed floor.
+a GPU.  The file imports only the port, so it runs as it is on the GPU
+machine:  python -m pytest tests/test_torch_cuda.py -q --noconftest
+Contracts as in test_torch_flush.py and test_torch_backends.py: density
+exact with a 3-column palette at weight 1.0, every channel within 1e-5
+of the bin's density otherwise; the split flush's rgb within one bf16
+ulp of its plain version; the tiled sort equal to torch.sort; a render
+on the GPU and on the CPU from the same seed (the same starting
+trajectories) agree by TV distance under the CPU's two-seed floor.
 """
 
 import numpy as np
@@ -18,16 +19,27 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from cuburn_tpu.models import full_feature, sierpinski  # noqa: E402
-from cuburn_tpu.profile import RenderProfile  # noqa: E402
 from cuburn_tpu_torch import render as trender  # noqa: E402
 from cuburn_tpu_torch.kernels import build  # noqa: E402
+from cuburn_tpu_torch.models import full_feature, sierpinski  # noqa: E402
 from cuburn_tpu_torch.ops import flush  # noqa: E402
 from cuburn_tpu_torch.ops import histogram as thist  # noqa: E402
+from cuburn_tpu_torch.ops import tiled_sort  # noqa: E402
+from cuburn_tpu_torch.profile import RenderProfile  # noqa: E402
 
 N_BINS = 300 * 200
 
 pytestmark = pytest.mark.cuda
+
+# wrapper, its plain version and its LAUNCHES key, per logical flush
+FLUSHES = {
+    "pallas_win": (flush.accumulate_windowed,
+                   flush.accumulate_windowed_reference, "win_flush"),
+    "pallas": (flush.accumulate_packed, flush.accumulate_packed_reference,
+               "packed_flush"),
+    "pallas_merged": (flush.accumulate_merged,
+                      flush.accumulate_merged_reference, "merged_flush"),
+}
 
 
 @pytest.fixture
@@ -58,57 +70,126 @@ def _flush(fn, rec, pal, bits, weight, device):
     return out.cpu().numpy()[:N_BINS]
 
 
+@pytest.mark.parametrize("backend", sorted(FLUSHES))
 @pytest.mark.parametrize("cols,bits,weight", [(3, 8, None), (3, 8, 0.37),
                                               (4, 10, 1.0),
                                               (4, 10, 0.37)])
-def test_kernel_matches_plain_version(cuda, cols, bits, weight):
-    rec = _records(7, 1 << 18, bits, sentinels=100)
+def test_kernel_matches_plain_version(cuda, backend, cols, bits, weight):
+    kernel, plain, name = FLUSHES[backend]
+    # the unsorted flush takes no sort padding, so no sentinels
+    rec = _records(7, 1 << 18, bits,
+                   sentinels=0 if backend == "pallas" else 100)
     pal = np.random.RandomState(8).rand(1 << bits, cols) \
         .astype(np.float32)
-    before = flush.LAUNCHES
-    got = _flush(flush.accumulate_windowed, rec, pal, bits, weight, cuda)
+    before = flush.LAUNCHES[name]
+    got = _flush(kernel, rec, pal, bits, weight, cuda)
     torch.cuda.synchronize()
-    assert flush.LAUNCHES == before + 1
-    ref = _flush(flush.accumulate_windowed_reference, rec, pal, bits,
-                 weight, "cpu")
+    assert flush.LAUNCHES[name] == before + 1
+    ref = _flush(plain, rec, pal, bits, weight, "cpu")
     if cols == 3 and weight is None:
         np.testing.assert_array_equal(got[:, 3], ref[:, 3])
     bound = 1e-5 * np.maximum(ref[:, 3:4], 1.0)
     assert (np.abs(got - ref) <= bound).all()
 
 
+@pytest.mark.parametrize("weight", [None, 0.37])
+def test_rgb16_kernel_matches_plain_version(cuda, weight):
+    """From a nonzero split histogram: density exact at weight 1.0
+    (within 1e-5 of itself otherwise), rgb within one bf16 ulp."""
+    rs = np.random.RandomState(9)
+    rec = _records(10, 1 << 18, 8, sentinels=100)
+    pal = rs.rand(256, 3).astype(np.float32)
+    start = rs.rand(N_BINS + 1, 4).astype(np.float32) * 50.0
+    start[:, 3] = rs.randint(0, 1000, N_BINS + 1)
+    outs = []
+    for dev in (cuda, "cpu"):
+        split = flush.to_split_layout(torch.as_tensor(start, device=dev))
+        fn = (flush.accumulate_windowed_rgb16 if dev == cuda
+              else flush.accumulate_windowed_rgb16_reference)
+        before = flush.LAUNCHES["win_flush_rgb16"]
+        dens, rgb = fn(split, torch.as_tensor(rec, device=dev),
+                       torch.as_tensor(pal, device=dev), N_BINS, 8,
+                       weight=weight)
+        assert dens is split[0] and rgb is split[1]
+        # two kernels a flush on the card: the runs and carry passes
+        assert flush.LAUNCHES["win_flush_rgb16"] \
+            == before + 2 * (dev == cuda)
+        outs.append((dens.cpu(), rgb.cpu()))
+    (dg, rg), (dr, rr) = outs
+    if weight is None:
+        assert torch.equal(dg, dr)
+    assert bool(((dg - dr).abs() <= 1e-5 * dr.clamp(min=1.0)).all())
+    ulp = torch.finfo(torch.bfloat16).eps * rr.float().abs().clamp(
+        min=torch.finfo(torch.bfloat16).tiny)
+    assert bool(((rg.float() - rr.float()).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("n", [2 * tiled_sort.TILE, 1 << 20])
+def test_tiled_sort_matches_torch_sort(cuda, n):
+    rs = np.random.RandomState(n % 1000)
+    keys = rs.randint(0, 2 ** 32, n, dtype=np.uint64).astype(np.int64)
+    keys[:64] = 0xFFFFFFFF
+    keys[64:128] = 0x80000000
+    k = torch.as_tensor(keys, device=cuda)
+    before = tiled_sort.LAUNCHES["bitonic_sort"]
+    got = tiled_sort.bitonic_sort_u32_tiled(k)
+    assert tiled_sort.LAUNCHES["bitonic_sort"] \
+        == before + len(tiled_sort.bitonic_schedule(n))
+    assert torch.equal(got, torch.sort(k).values)
+
+
 def test_flush_raises_when_build_fails(cuda, monkeypatch):
     """No fallback: a kernel that cannot be built makes the CUDA flush
     raise instead of returning the plain result."""
-    def broken(_name):
-        raise RuntimeError("nvcc failed building win_flush.cu")
+    def broken(name):
+        raise RuntimeError(f"nvcc failed building {name}.cu")
     monkeypatch.setattr(build, "load", broken)
-    hist = thist.alloc(N_BINS, cuda)
     rec = torch.as_tensor(_records(9, 1000, 8, 0), device=cuda)
-    before = flush.LAUNCHES
+    pal = torch.rand((256, 3), device=cuda)
+    for fn, _plain, name in FLUSHES.values():
+        hist = thist.alloc(N_BINS, cuda)
+        before = flush.LAUNCHES[name]
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            fn(hist, rec, pal, N_BINS, 8)
+        assert flush.LAUNCHES[name] == before
+        assert float(hist.abs().sum()) == 0.0
+    split = flush.alloc_split(N_BINS, cuda)
     with pytest.raises(RuntimeError, match="nvcc failed"):
-        flush.accumulate_windowed(hist, rec,
-                                  torch.rand((256, 3), device=cuda),
-                                  N_BINS, 8)
-    assert flush.LAUNCHES == before
-    assert float(hist.abs().sum()) == 0.0
+        flush.accumulate_windowed_rgb16(split, rec, pal, N_BINS, 8)
+    assert float(split[0].abs().sum()) == 0.0
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        tiled_sort.bitonic_sort_u32_tiled(
+            torch.zeros(2 * tiled_sort.TILE, dtype=torch.int64,
+                        device=cuda))
 
 
-def test_render_goes_through_kernel(cuda):
-    prof = RenderProfile(width=128, height=128, quality=20, batch=8192)
+@pytest.mark.parametrize("backend,name", [
+    ("pallas_win", "win_flush"), ("pallas", "packed_flush"),
+    ("pallas_merged", "merged_flush"),
+    ("pallas_rgb16", "win_flush_rgb16")])
+def test_render_goes_through_kernel(cuda, backend, name):
+    prof = RenderProfile(width=128, height=128, quality=20, batch=8192,
+                         hist_backend=backend)
     r = trender.Renderer(full_feature(), prof)
-    assert r.backend == "pallas_win" and r.device.type == "cuda"
-    flush.LAUNCHES = 0
+    assert r.backend == backend and r.device.type == "cuda"
+    flush.LAUNCHES[name] = 0
     img, stats = r.render_frame(0.0, seed=1)
-    assert flush.LAUNCHES > 0
+    assert flush.LAUNCHES[name] > 0
     assert img.shape == (128, 128, 4) and img[..., :3].any()
     assert stats.plotted_samples > 0
 
 
+def test_auto_backend_is_the_windowed_kernel(cuda):
+    prof = RenderProfile(width=32, height=32, quality=5, batch=1024)
+    assert trender.Renderer(sierpinski(), prof).backend == "pallas_win"
+
+
 @pytest.mark.parametrize("genome", [sierpinski, full_feature])
-def test_render_matches_cpu_by_distribution(cuda, genome):
+@pytest.mark.parametrize("backend", ["pallas_win", "pallas",
+                                     "pallas_merged", "pallas_rgb16"])
+def test_render_matches_cpu_by_distribution(cuda, genome, backend):
     prof = RenderProfile(width=64, height=64, quality=100, batch=4096,
-                         hist_backend="pallas_win", de_enabled=False)
+                         hist_backend=backend, de_enabled=False)
 
     def density(device, seed):
         h, _ = trender.Renderer(genome(), prof, device=device) \

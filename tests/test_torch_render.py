@@ -133,20 +133,22 @@ def test_resume_jax_histogram(monkeypatch):
 
 
 def test_port_imports_and_renders_without_jax(tmp_path):
-    """The runtime never imports jax: with jax blocked, the package
-    imports and renders a 32x32 sierpinski on the CPU."""
+    """The runtime never imports jax or the JAX package: with both
+    blocked, the package imports and renders a 32x32 sierpinski on the
+    CPU from its own gallery and profile."""
     script = """
 import sys
 sys.modules["jax"] = None
+sys.modules["cuburn_tpu"] = None
 import json
-from cuburn_tpu.models import sierpinski
-from cuburn_tpu.profile import RenderProfile
+from cuburn_tpu_torch.models import sierpinski
+from cuburn_tpu_torch.profile import RenderProfile
 from cuburn_tpu_torch.render import Renderer
 import cuburn_tpu_torch.main
 prof = RenderProfile(width=32, height=32, quality=10, batch=1024)
 img, stats = Renderer(sierpinski(), prof, device="cpu").render_frame()
 mods = sorted(m for m in sys.modules
-              if (m == "jax" or m.startswith(("jax.", "jaxlib")))
+              if (m == "jax" or m.startswith(("jax.", "jaxlib", "cuburn_tpu.")))
               and sys.modules[m] is not None)
 print(json.dumps({"shape": list(img.shape), "lit": int(img[..., :3].any()),
                   "jax_modules": mods}))
@@ -186,14 +188,20 @@ def test_cli_refuses_unported_flags(flag):
 
 
 def test_renderer_backend_choice():
+    """Every backend of the JAX package is accepted by name; `auto` is
+    scatter on the CPU; unknown names and motion blur are refused."""
     g = sierpinski()
     prof = RenderProfile(width=32, height=32, quality=5, batch=1024)
     assert trender.Renderer(g, prof, device="cpu").backend == "scatter"
-    for name in ("pallas", "pallas_merged", "pallas_rgb16", "sortcum",
-                 "scatter_sorted"):
-        with pytest.raises(NotImplementedError, match="queue B"):
-            trender.Renderer(g, RenderProfile(
-                **{**prof.__dict__, "hist_backend": name}), device="cpu")
+    for name in ("scatter", "pallas", "pallas_merged", "pallas_win",
+                 "pallas_rgb16", "sortcum", "scatter_sorted"):
+        assert trender.Renderer(g, RenderProfile(
+            **{**prof.__dict__, "hist_backend": name}),
+            device="cpu").backend == name
+    with pytest.raises(ValueError, match="unknown histogram backend"):
+        trender.Renderer(g, RenderProfile(
+            **{**prof.__dict__, "hist_backend": "pallas_fast"}),
+            device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trender.Renderer(g, RenderProfile(
             **{**prof.__dict__, "temporal_samples": 4}), device="cpu")
