@@ -14,17 +14,24 @@ CUDA toolkit.  Phases, each printed on its own line:
               into the 8.63 M-bin 1080p-ss2 histogram): density
               bit-exact with a 3-column palette at weight 1.0, every
               channel within 1e-5 of the bin's density with the 4-column
-              opacity palette at weight 0.37; median of 10 timed calls
-              of the kernel path, the plain version and one PyTorch call
-              computing the same function (unpack + index_add_), and
-              the bound from the bytes the flush must move
+              opacity palette at weight 0.37; medians of 10 timed calls
+              of the kernel path (the kernel sort, then win_flush), the
+              kernel alone, the sort, the plain version and one PyTorch
+              call computing the same function (unpack + index_add_),
+              each on the host clock (`ms`) and on the device clock
+              (`device_ms`), and the bound from the bytes the flush must
+              move
   4. render   Renderer(full_feature, 1080p profile at quality Q)
-              .render_frame on cuda through the kernel; the PNG goes to
-              smoke_out/ in the checkout.  Then the records of the first
-              two flushes of that render (the first holds the fuse
-              steps) against the synthetic mix of phases 3 and 6: junk
-              share, touched bins, hot-bin shares, and the unsorted
-              flush (scatter_flush.cu) timed on each
+              .render_frame on cuda through the kernels (the sort and
+              win_flush, each launched); the PNG goes to smoke_out/ in
+              the checkout.  Then the records of the first two flushes
+              of that render (the first holds the fuse steps) against
+              the synthetic mix of phases 3 and 6: junk share, touched
+              bins, hot-bin shares, the unsorted flush (scatter_flush.cu)
+              timed on each; and on the first and the real flush,
+              win_flush checked as in phase 3 and timed with its kernel
+              path, alone, and the sort, beside the merged and split
+              flushes' kernel paths
   5. parity   sierpinski and full_feature at 128x128 on cuda against
               the same render on the CPU (the flush's plain version):
               TV distance of the normalised density histograms under 3x
@@ -35,7 +42,8 @@ CUDA toolkit.  Phases, each printed on its own line:
               (win_flush_rgb16.cu) from a nonzero split histogram,
               density bit-exact and rgb within one bf16 ulp; the tiled
               bitonic sort (bitonic_sort.cu) equal to torch.sort at 2^22
-              and 2^23 keys; times and bounds as in phase 3
+              and 2^23 keys, with each pass's device time; times and
+              bounds as in phase 3
   7. render   full_feature at 1080p through the backends pallas,
               pallas_merged and pallas_rgb16 at quality Q: launches > 0,
               histogram mass == plotted samples, a non-black frame
@@ -81,6 +89,9 @@ SENTINEL = 0xFFFFFFFF
 # palette columns, color bits, weight.  8 bits is what the 1080p
 # accumulator leaves (24 address bits), so every record fits 32 bits
 FLUSH_CONFIGS = ((3, 8, 1.0), (4, 8, 0.37))
+# ~6 ms at the H100's 1.7-2 GHz: the head start the host gets before a
+# device timing starts
+SLEEP_CYCLES = 10_000_000
 
 
 def check(cond, msg):
@@ -93,22 +104,42 @@ def phase(n, name, **fields):
     print(f"phase {n} {name}: " + json.dumps(fields), flush=True)
 
 
-def timed(fn, sync):
-    sync()
+def timed(torch, fn):
+    """(wall ms, device ms) of one call.  Wall: host clock around the
+    call, synchronised.  Device: CUDA events around the call with the
+    stream held back by a sleep kernel, so the host enqueues everything
+    first and the events span the call's kernels back to back, without
+    the host's gaps between launches (for calls that enqueue in less
+    than the sleep)."""
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
-    sync()
-    return (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return wall, start.elapsed_time(end)
 
 
-def medians(fns, sync, reps=10):
-    """{name: median ms of `reps` calls after one warm-up}, the
-    functions called in turns."""
+def medians(torch, fns, reps=10):
+    """{name: median wall ms, device name: median device ms} of `reps`
+    calls after one warm-up, the functions called in turns; the device
+    twin of "x_ms" is "x_device_ms" ("device_ms" for "ms")."""
     ms = {k: [] for k in fns}
     for _ in range(reps + 1):
         for k, fn in fns.items():
-            ms[k].append(timed(fn, sync))
-    return {k: statistics.median(v[1:]) for k, v in ms.items()}
+            ms[k].append(timed(torch, fn))
+    out = {}
+    for k, v in ms.items():
+        out[k] = statistics.median(w for w, _ in v[1:])
+        out["device_ms" if k == "ms" else k[:-3] + "_device_ms"] = \
+            statistics.median(d for _, d in v[1:])
+    return out
 
 
 def bound(nbytes, ops=0.0):
@@ -156,7 +187,8 @@ def library_flush(torch, hist, rec, pal4, n_bins, bits, weight):
                            alpha=weight)
 
 
-def phase_flush(torch, flush, thist, name, n_bins, acc_width, phase_no):
+def phase_flush(torch, flush, sort, thist, name, n_bins, acc_width,
+                phase_no):
     """A flush kernel of the logical histogram against its plain version
     on the card, at the main path's shapes."""
     kernel, plain = {
@@ -201,11 +233,11 @@ def phase_flush(torch, flush, thist, name, n_bins, acc_width, phase_no):
                                                 n_bins, bits, weight),
         }
         if name == "win_flush":
-            srt = torch.sort(rec).values
+            srt = sort.sort_records(rec)
             fns["kernel_only_ms"] = lambda: flush._launch(
                 "win_flush", dev, srt.data_ptr(), srt.numel(),
                 pal4.data_ptr(), bits, n_bins, weight, hk.data_ptr())
-            fns["sort_ms"] = lambda: torch.sort(rec)
+            fns["sort_ms"] = lambda: sort.sort_records(rec)
         elif name == "packed_flush":
             # the same records without the junk bin's 10%, all of whose
             # atomics hit one address
@@ -220,7 +252,7 @@ def phase_flush(torch, flush, thist, name, n_bins, acc_width, phase_no):
                 hk.data_ptr())
             fns["sort_merge_ms"] = lambda: flush.merge_records(
                 rec, n_bins, bits)
-        med = medians(fns, sync)
+        med = medians(torch, fns)
         touched = touched_bins(torch, rec, n_bins, bits)
         # records read once, each touched bin's 16 bytes read and
         # written once, the palette read once; ~8 flops a record
@@ -285,13 +317,13 @@ def phase_rgb16(torch, flush, n_bins, acc_width):
             carry.zero_()
             flush.rgb16_launch(srt, pal4, bits, n_bins, weight, sk[0],
                                sk[1], carry)
-        med = medians({
+        med = medians(torch, {
             "ms": lambda: flush.accumulate_windowed_rgb16(
                 sk, rec, pal, n_bins, bits, weight),
             "plain_ms": lambda: flush.accumulate_windowed_rgb16_reference(
                 sr, rec, pal, n_bins, bits, weight),
             "kernel_only_ms": kernel_only,
-        }, sync)
+        })
         touched = touched_bins(torch, rec, n_bins, bits)
         # records once; per touched bin 4 bytes of density and 6 of rgb,
         # read and written once
@@ -308,9 +340,9 @@ def phase_rgb16(torch, flush, n_bins, acc_width):
 
 
 def phase_sort(torch, tiled_sort):
-    """The tiled bitonic sort against torch.sort (phase 6).  Returns the
-    2^22-key timings, the max error and the kernel launches of the
-    checked calls (one per pass)."""
+    """The tiled bitonic sort against torch.sort (phase 6), with each
+    pass's device time.  Returns the 2^22-key timings and the max error;
+    the checked calls launch one kernel per pass."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(7)
     sync = torch.cuda.synchronize
@@ -334,11 +366,13 @@ def phase_sort(torch, tiled_sort):
               f"bitonic sort differs from torch.sort at 2^{log_n}")
         max_err = max(max_err, float((got[log_n] - ref).abs().max()))
         n = k.numel()
-        med = medians({
+        med = medians(torch, {
             "ms": lambda: tiled_sort.bitonic_sort_u32_tiled(k),
             "plain_ms": lambda: tiled_sort.bitonic_sort_reference(k),
             "library_ms": lambda: torch.sort(k),
-        }, sync, reps=10 if log_n == 22 else 3)
+        }, reps=10 if log_n == 22 else 3)
+        passes = tiled_sort.bitonic_schedule(n)
+        per_pass = sort_pass_ms(torch, tiled_sort, k)
         # int64 keys read once and written once; a min and a max for
         # each pair of every substage of the network
         substages = log_n * (log_n + 1) // 2
@@ -347,8 +381,40 @@ def phase_sort(torch, tiled_sort):
         results[log_n] = med
         phase(6, "kernel", kernel="bitonic_sort", keys=n,
               tile=tiled_sort.TILE, equal_to_torch_sort=True,
-              passes=len(tiled_sort.bitonic_schedule(n)), **med)
-    return results[22], max_err, launches
+              passes=len(passes), **med,
+              pass_device_ms=[[" ".join(map(str, p)), t]
+                              for p, t in zip(passes, per_pass)],
+              pass_device_ms_sum=sum(per_pass))
+    return results[22], max_err
+
+
+def sort_pass_ms(torch, tiled_sort, keys, reps=5):
+    """Device ms of each pass of the kernel sort of `keys`: an event
+    after every launch, the host ahead of the device (as in timed);
+    medians of `reps` sorts after a warm-up."""
+    launch = tiled_sort._build.launch
+    events = []
+
+    def marked(*args):
+        launch(*args)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    tiled_sort._build.launch = marked
+    try:
+        per = []
+        for _ in range(reps + 1):
+            events.clear()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            tiled_sort.bitonic_sort_u32_tiled(keys)
+            torch.cuda.synchronize()
+            marks = [start, *events]
+            per.append([a.elapsed_time(b) for a, b in zip(marks, marks[1:])])
+    finally:
+        tiled_sort._build.launch = launch
+    return [statistics.median(col) for col in zip(*per[1:])]
 
 
 def tv_distance(a, b):
@@ -357,16 +423,19 @@ def tv_distance(a, b):
     return 0.5 * float((da / da.sum() - db / db.sum()).abs().sum())
 
 
-def phase_render(torch, flush, tit, write_image, r, quality):
-    """The main path on the card (phase 4): returns the kernel's
-    launches during render_frame and copies of the records of the first
-    two flushes of a second pass."""
+def phase_render(torch, flush, tiled_sort, tit, write_image, r, quality):
+    """The main path on the card (phase 4): returns the launches of its
+    kernels (the flush and the sort) during render_frame and copies of
+    the records of the first two flushes of a second pass."""
     check(r.backend == "pallas_win",
           f"backend {r.backend}, expected pallas_win")
     flush.LAUNCHES["win_flush"] = 0
+    tiled_sort.LAUNCHES["bitonic_sort"] = 0
     img, stats = r.render_frame(0.0, seed=1)
-    launches = flush.LAUNCHES["win_flush"]
-    check(launches > 0, "the 1080p render launched no kernel")
+    launches = {"win_flush": flush.LAUNCHES["win_flush"],
+                "bitonic_sort": tiled_sort.LAUNCHES["bitonic_sort"]}
+    for name, count in launches.items():
+        check(count > 0, f"the 1080p render launched no {name}")
     check(stats.plotted_samples > 0, "no samples plotted")
     check(img.shape == (1080, 1920, 4), f"image shape {img.shape}")
     check(bool(img[..., :3].any()), "the image is black")
@@ -400,6 +469,8 @@ def phase_render(torch, flush, tit, write_image, r, quality):
           iters_per_chunk=prof.iters_per_chunk,
           records_per_flush=prof.batch * prof.iters_per_chunk,
           backend=r.backend, launches=launches,
+          sort_passes_per_flush=len(tiled_sort.bitonic_schedule(
+              1 << (prof.batch * prof.iters_per_chunk - 1).bit_length())),
           plotted_samples=stats.plotted_samples,
           total_iters=stats.total_iters,
           samples_per_s=stats.samples_per_sec,
@@ -427,20 +498,25 @@ def flush_mix(torch, rec, n_bins, bits, hot_bins=128 * 128):
                 float(live.topk(hot_bins).values.sum()) / n}
 
 
-def phase_flush_mix(torch, flush, thist, flushes, n_bins, acc_width,
+def phase_flush_mix(torch, flush, sort, thist, flushes, n_bins, acc_width,
                     bits):
     """The records of real 1080p flushes against the synthetic mix of
-    the kernel phases (phase 4): how they spread, and the unsorted
-    flush timed on each, with and without the junk bin's records.  The
-    first flush of a render holds the fuse steps, whose points all go
-    to the junk bin; the second is what every later flush looks like."""
+    the kernel phases (phase 4): how they spread; the unsorted flush
+    timed on each, with and without the junk bin's records; and, on the
+    real records, the main path's flush checked against its plain
+    version and timed: the kernel path, win_flush alone and the sort;
+    and the merged and split flushes' kernel paths.
+    The first flush of a render holds the fuse steps, whose points all
+    go to the junk bin; the second is what every later flush looks
+    like."""
     dev = torch.device("cuda")
     rec = flushes[1]
     gen = torch.Generator().manual_seed(3)
     synth, pal = flush_inputs(torch, rec.numel(), n_bins, acc_width, 3,
                               bits, gen)
     hist = thist.alloc(n_bins, dev)
-    fns = {}
+    split = flush.alloc_split(n_bins, dev)
+    fns, win_err = {}, 0.0
     for name, r in (("first", flushes[0]), ("real", rec),
                     ("synthetic", synth)):
         live = r[(r >> bits) < n_bins]
@@ -448,11 +524,50 @@ def phase_flush_mix(torch, flush, thist, flushes, n_bins, acc_width,
             hist, r, pal, n_bins, bits))
         fns[f"{name}_no_junk_ms"] = (lambda r=live: flush.accumulate_packed(
             hist, r, pal, n_bins, bits))
-    med = medians(fns, torch.cuda.synchronize)
-    phase(4, "flush_mix", kernel="packed_flush", color_bits=bits,
+        if name == "synthetic":
+            continue
+        for cols, _bits, weight in FLUSH_CONFIGS:
+            p = torch.rand((1 << bits, cols), generator=gen).to(dev)
+            if cols == 4:
+                p[:, :3] *= p[:, 3:]        # rgb * opacity, opacity
+            got = flush.accumulate_windowed(thist.alloc(n_bins, dev), r, p,
+                                            n_bins, bits, weight)
+            ref = flush.accumulate_windowed_reference(
+                thist.alloc(n_bins, dev), r, p, n_bins, bits, weight)
+            torch.cuda.synchronize()
+            if cols == 3:
+                check(torch.equal(got[:, 3], ref[:, 3]),
+                      f"win_flush on the {name} flush: density not "
+                      "bit-exact at weight 1.0")
+            err = (got[:n_bins] - ref[:n_bins]).abs()
+            check(bool((err <= 1e-5 * ref[:n_bins, 3:].clamp(min=1.0))
+                       .all()),
+                  f"win_flush on the {name} flush: max err "
+                  f"{float(err.max())} ({cols}-column palette)")
+            win_err = max(win_err, float(err.max()))
+        srt = sort.sort_records(r)
+        pal4 = flush._pal4(pal).contiguous()
+        fns[f"{name}_win_ms"] = (lambda r=r: flush.accumulate_windowed(
+            hist, r, pal, n_bins, bits))
+        fns[f"{name}_win_kernel_only_ms"] = (
+            lambda srt=srt, pal4=pal4: flush._launch(
+                "win_flush", dev, srt.data_ptr(), srt.numel(),
+                pal4.data_ptr(), bits, n_bins, 1.0, hist.data_ptr()))
+        fns[f"{name}_sort_ms"] = lambda r=r: sort.sort_records(r)
+        # the other two sorted flushes' kernel paths on the same records
+        fns[f"{name}_merged_ms"] = (lambda r=r: flush.accumulate_merged(
+            hist, r, pal, n_bins, bits))
+        fns[f"{name}_rgb16_ms"] = (
+            lambda r=r: flush.accumulate_windowed_rgb16(split, r, pal,
+                                                        n_bins, bits))
+    med = medians(torch, fns)
+    phase(4, "flush_mix", kernels=["packed_flush", "win_flush",
+                                   "bitonic_sort", "merged_flush",
+                                   "win_flush_rgb16"], color_bits=bits,
           first=flush_mix(torch, flushes[0], n_bins, bits),
           real=flush_mix(torch, rec, n_bins, bits),
-          synthetic=flush_mix(torch, synth, n_bins, bits), **med)
+          synthetic=flush_mix(torch, synth, n_bins, bits),
+          win_flush_max_abs_err=win_err, **med)
 
 
 def phase_render_backend(torch, flush, Renderer, genome, get_profile,
@@ -531,7 +646,7 @@ def main(argv=None) -> int:
         return 2
     from cuburn_tpu_torch.kernels import build
     from cuburn_tpu_torch.models import full_feature, sierpinski
-    from cuburn_tpu_torch.ops import flush, tiled_sort
+    from cuburn_tpu_torch.ops import flush, sort, tiled_sort
     from cuburn_tpu_torch.ops import histogram as thist
     from cuburn_tpu_torch.ops import iterate as tit
     from cuburn_tpu_torch.output import write_image
@@ -557,10 +672,12 @@ def main(argv=None) -> int:
     n_bins, acc_width = main_r.cam.n_bins, main_r.cam.acc_width
     times, errs, launches = {}, {}, {}
     times["win_flush"], errs["win_flush"] = phase_flush(
-        torch, flush, thist, "win_flush", n_bins, acc_width, 3)
-    launches["win_flush"], real_flushes = phase_render(
-        torch, flush, tit, write_image, main_r, args.quality)
-    phase_flush_mix(torch, flush, thist, real_flushes, n_bins, acc_width,
+        torch, flush, sort, thist, "win_flush", n_bins, acc_width, 3)
+    main_launches, real_flushes = phase_render(
+        torch, flush, tiled_sort, tit, write_image, main_r, args.quality)
+    launches.update(main_launches)
+    phase_flush_mix(torch, flush, sort, thist, real_flushes, n_bins,
+                    acc_width,
                     tit.record_bits(main_r.key, main_r.cam, "pallas_win",
                                     main_r.op_bits)[1])
     del real_flushes
@@ -569,11 +686,11 @@ def main(argv=None) -> int:
 
     for name in ("packed_flush", "merged_flush"):
         times[name], errs[name] = phase_flush(
-            torch, flush, thist, name, n_bins, acc_width, 6)
+            torch, flush, sort, thist, name, n_bins, acc_width, 6)
     times["win_flush_rgb16"], errs["win_flush_rgb16"] = phase_rgb16(
         torch, flush, n_bins, acc_width)
-    (times["bitonic_sort"], errs["bitonic_sort"],
-     launches["bitonic_sort"]) = phase_sort(torch, tiled_sort)
+    times["bitonic_sort"], errs["bitonic_sort"] = phase_sort(
+        torch, tiled_sort)
     del main_r
     for name in RENDER_BACKENDS:
         launches[name] = phase_render_backend(
@@ -588,6 +705,7 @@ def main(argv=None) -> int:
         "name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu",
         "replaces": replaces, "launches": launches[name],
         "max_abs_err": errs[name], "ms": times[name]["ms"],
+        "device_ms": times[name]["device_ms"],
         "plain_ms": times[name]["plain_ms"],
         "bound_ms": times[name]["bound_ms"],
         "bound_by": times[name]["bound_by"],

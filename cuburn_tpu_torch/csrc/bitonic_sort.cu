@@ -10,120 +10,570 @@
 // the next global stage expects.
 //
 // Two entries, driven pass by pass from ops/tiled_sort.py, which owns
-// the schedule:
-//   bitonic_local_pass     one block per TILE of keys, loaded into shared
-//                          memory; either every stage 1..log2(TILE)
-//                          (size == 0), or, for a later stage `size`,
-//                          its substages of stride TILE/2 down to 1.
-//   bitonic_global_substage one compare-exchange substage of stride
-//                          >= TILE over the whole array, one thread per
-//                          pair, in device memory.
+// the schedule (one launch a pass):
+//   bitonic_local_pass   one block per tile of keys: either every stage
+//                        1..log2(tile) (size == 0), or, for a later
+//                        stage `size`, its strides tile/2 down to 1.
+//                        The first pass of a sort reads the caller's
+//                        int64 keys and the last writes int64, so the
+//                        narrowing and widening cost no extra kernel.
+//   bitonic_global_pass  up to four consecutive strides >= TILE of one
+//                        stage over the whole array, in device memory.
 //
-// What bounds it on the card: device-memory passes.  Each global
-// substage and each local pass reads and writes the whole array once
-// (2^22 keys: 16 MB, about 10 microseconds a pass at 3.35 TB/s), so the
-// count of passes sets the time; the compare-exchanges inside a tile run
-// from shared memory.
+// What bounds it on the card: device-memory passes and, inside a tile,
+// instruction issue (compare-exchanges, shuffles) and barriers.  Each
+// pass reads and writes the array once (2^22 u32 keys: 32 MB, about 10
+// microseconds at 3.35 TB/s).
 //
-// What the design does about it: TILE = 2^15 keys (128 KB of shared
-// memory, above the 48 KB default, so the entry raises the kernel's
-// dynamic shared-memory limit first) fuses the 120 substages of stages
-// 1..15 into one pass and the last 15 substages of every later stage
-// into one pass.  The TPU kernel's 2^16-key tile (256 KB of VMEM) does
-// not fit the 227 KB a block may use.  Keys are u32, half the bytes of
-// the port's int64 records.
+// What the design does about it.  A thread holds 16 keys in registers:
+// the keys whose indices differ only in a window of 4 index bits, the
+// other bits fixed by the thread (an "orbit").  Every stride inside the
+// window is a compare-exchange between two of the thread's registers;
+// a stride on the 5 lane bits is a __shfl_xor_sync.  So one pass over
+// the keys runs every consecutive substage whose stride falls in the
+// window or on the lanes:
+//   - a global pass fuses four strides (k, k/2, k/4, k/8) of a stage,
+//     the lanes on index bits 0..4 so that every access is coalesced: at
+//     2^22 keys 10 global passes instead of one pass a stride (28);
+//   - a local pass loads its tile (TILE = 2^15 keys, 128 KB) into shared
+//     memory with coalesced 16-byte loads (the first pass narrowing the
+//     caller's int64 keys, the last widening them back), runs its
+//     substages in groups, each one read of the orbits from shared
+//     memory, the group's substages in registers and shuffles, one write
+//     back and one barrier, and stores the tile.  Strides 2^8..1 use the
+//     low layout (registers on index bits 0..3, lanes on 4..8), larger
+//     ones a window [j - 3, j].  Stages 1..9 are one group, a later
+//     stage's strides 2^14..1 are three.  Shared memory is swizzled so
+//     that neither layout has bank conflicts.
+//   - in a 2^15-key tile every group is unrolled at compile time as
+//     plain ascending min/max steps: a thread complements the keys that
+//     sort descending before a stage and after it (the direction is one
+//     per thread from stage 4 on, and known at compile time before).
+// At 2^22 keys a sort is 18 launches: 8 local passes and 10 global.  A
+// tile smaller than 512 keys (N < 512) is padded in shared memory with
+// 0xFFFFFFFF, which sorts last and is never stored.  The TPU kernel's
+// 2^16-key tile (256 KB of VMEM) does not fit the 227 KB a block may
+// use; its lane/sublane rolls have no counterpart.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTileLog = 15;  // ops/tiled_sort.py TILE_LOG
+constexpr int kTileLog = 15;          // ops/tiled_sort.py TILE_LOG
 constexpr int kTile = 1 << kTileLog;
-constexpr int kThreads = 1024;
+constexpr int kMinTileLog = 9;        // one warp's 32 lanes x 16 keys
+constexpr int kKeysLog = 4;           // ops/tiled_sort.py FUSE
+constexpr int kKeys = 1 << kKeysLog;
+constexpr int kLaneLog = 5;
+constexpr int kMaxThreads = 1024;
+constexpr int kGlobalThreads = 256;
+constexpr uint32_t kPad = 0xFFFFFFFFu;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 __device__ __forceinline__ void compare_exchange(uint32_t& a, uint32_t& b,
                                                  bool ascending) {
-  if ((a > b) == ascending) {
-    const uint32_t t = a;
-    a = b;
-    b = t;
+  const uint32_t x = a;
+  a = ascending ? min(x, b) : max(x, b);
+  b = ascending ? max(x, b) : min(x, b);
+}
+
+// Index of key e of orbit o, the window at bits [wlo, wlo + kKeysLog).
+template <typename T>
+__device__ __forceinline__ T orbit_index(T o, int wlo, int e) {
+  const T low = o & ((T(1) << wlo) - 1);
+  return low | (T(e) << wlo) | ((o >> wlo) << (wlo + kKeysLog));
+}
+
+// -- steps with a direction per key (the first pass) -----------------------
+
+// Which of the thread's 16 keys sort descending in a substage of stage
+// `size` (< tile), as a mask over e: a key sorts descending where its
+// tile index & size is set, or everywhere when `bdesc` (size == tile
+// and the tile base has the bit).  The size bit is either outside the
+// window (one direction for the orbit, from li0) or one of its bits.
+__device__ __forceinline__ uint32_t descending_mask(uint32_t li0, int wlo,
+                                                    uint32_t size,
+                                                    bool bdesc) {
+  if (bdesc || (li0 & size)) return 0xFFFFu;
+  switch ((size >> wlo) & 15u) {
+    case 1: return 0xAAAAu;
+    case 2: return 0xCCCCu;
+    case 4: return 0xF0F0u;
+    case 8: return 0xFF00u;
+    default: return 0u;
   }
 }
 
-// One substage over the tile in shared memory: pair p holds elements i
-// and i + k, i with its k-bit clear.
-__device__ __forceinline__ void tile_substage(uint32_t* s,
-                                              unsigned long long base,
-                                              unsigned long long size,
-                                              int log_k) {
-  const int k = 1 << log_k;
-  for (int p = threadIdx.x; p < kTile / 2; p += kThreads) {
-    const int i = ((p >> log_k) << (log_k + 1)) | (p & (k - 1));
-    compare_exchange(s[i], s[i + k], ((base + i) & size) == 0);
+// Stride 2^(wlo + B) inside the window: registers e and e | 2^B.
+template <int B>
+__device__ __forceinline__ void register_step(uint32_t (&v)[kKeys],
+                                              uint32_t desc) {
+#pragma unroll
+  for (int e = 0; e < kKeys; ++e) {
+    if (e & (1 << B)) continue;
+    compare_exchange(v[e], v[e | (1 << B)], !((desc >> e) & 1u));
+  }
+}
+
+// A stride on lane bit `lane`: the partner is lane ^ 2^lane, same
+// register.  The key with that bit clear keeps the smaller key where it
+// sorts ascending.
+__device__ __forceinline__ void shuffle_step(uint32_t (&v)[kKeys], int lane,
+                                             uint32_t desc) {
+  const uint32_t keep_min = ((threadIdx.x >> lane) & 1u) ? desc : ~desc;
+#pragma unroll
+  for (int e = 0; e < kKeys; ++e) {
+    const uint32_t p = __shfl_xor_sync(kFull, v[e], 1u << lane);
+    v[e] = ((keep_min >> e) & 1u) ? min(v[e], p) : max(v[e], p);
+  }
+}
+
+// -- ascending steps on complemented keys ------------------------------------
+//
+// Complementing a key (x ^ 0xFFFFFFFF) reverses the order, so a pair
+// that sorts descending is an ascending pair of complemented keys.
+// Where every key of a thread has one direction (every stage past 9,
+// and a later pass, where it is one per warp or per block), or where it
+// is known at compile time (stages 1..3, whose size bit is a register
+// bit), the thread complements its descending keys, runs plain min/max
+// steps unrolled at compile time, and complements them back.  Both keys
+// of a pair share the size bit, so they are complemented together.
+
+__device__ __forceinline__ void complement(uint32_t (&v)[kKeys],
+                                           uint32_t mask) {
+#pragma unroll
+  for (int e = 0; e < kKeys; ++e) v[e] ^= mask;
+}
+
+template <int B>
+__device__ __forceinline__ void ascending_register_step(uint32_t (&v)[kKeys]) {
+#pragma unroll
+  for (int e = 0; e < kKeys; ++e) {
+    if (e & (1 << B)) continue;
+    const uint32_t a = v[e], b = v[e | (1 << B)];
+    v[e] = min(a, b);
+    v[e | (1 << B)] = max(a, b);
+  }
+}
+
+template <int kLane>
+__device__ __forceinline__ void ascending_shuffle_step(uint32_t (&v)[kKeys]) {
+  const bool upper = (threadIdx.x >> kLane) & 1u;
+#pragma unroll
+  for (int e = 0; e < kKeys; ++e) {
+    const uint32_t p = __shfl_xor_sync(kFull, v[e], 1u << kLane);
+    v[e] = upper ? max(v[e], p) : min(v[e], p);
+  }
+}
+
+// Strides 2^J down to 2^Lo, ascending, in the layout whose window starts
+// at index bit W (W == 0: the low layout, lanes on bits 4..8; else lanes
+// on bits 0..4).
+template <int W, int J, int Lo>
+__device__ __forceinline__ void ascending_steps(uint32_t (&v)[kKeys]) {
+  if constexpr (J >= Lo) {
+    if constexpr (J >= W && J < W + kKeysLog) {
+      ascending_register_step<J - W>(v);
+    } else {
+      ascending_shuffle_step<J - (W == 0 ? kKeysLog : 0)>(v);
+    }
+    ascending_steps<W, J - 1, Lo>(v);
+  }
+}
+
+// Stage S (< 10) of a tile in the low layout: strides 2^(S-1)..1.  The
+// size bit is register bit S (S < 4: a direction per key, known at
+// compile time) or a lane or warp bit of li0 (one per thread).
+template <int S>
+__device__ __forceinline__ void low_stage(uint32_t (&v)[kKeys],
+                                          uint32_t li0) {
+  uint32_t mask[kKeys];
+#pragma unroll
+  for (int e = 0; e < kKeys; ++e) {
+    const bool desc = S < kKeysLog ? ((e >> S) & 1) : ((li0 >> S) & 1u);
+    mask[e] = desc ? kPad : 0u;
+    v[e] ^= mask[e];
+  }
+  ascending_steps<0, S - 1, 0>(v);
+#pragma unroll
+  for (int e = 0; e < kKeys; ++e) v[e] ^= mask[e];
+}
+
+template <int S>
+__device__ __forceinline__ void low_stages(uint32_t (&v)[kKeys],
+                                           uint32_t li0) {
+  if constexpr (S >= 1) {
+    low_stages<S - 1>(v, li0);
+    low_stage<S>(v, li0);
+  }
+}
+
+// -- the tile in shared memory ---------------------------------------------
+
+// Shared-memory word of tile index i: bits 2..3 XORed with bits 5..6.
+// A warp of a window layout touches 32 consecutive indices (one permuted
+// row of banks), and a quarter-warp of the low layout eight 16-byte
+// vectors 64 bytes apart (spread over all eight vector slots of a row),
+// so neither layout has bank conflicts.
+__device__ __forceinline__ uint32_t swizzle(uint32_t i) {
+  return i ^ (((i >> 5) & 3u) << 2);
+}
+
+__device__ __forceinline__ uint32_t load_key(const void* in, bool in64,
+                                             unsigned long long g,
+                                             unsigned long long n) {
+  if (g >= n) return kPad;
+  return in64 ? static_cast<uint32_t>(static_cast<const long long*>(in)[g])
+              : static_cast<const uint32_t*>(in)[g];
+}
+
+// The block's tile into shared memory, four keys a thread a step: every
+// load of a warp is one coalesced 512-byte (1 KB for int64) span, and all
+// are in flight before the first compare-exchange.  Keys past n (a tile
+// smaller than 512 keys) are 0xFFFFFFFF, which sorts last.
+template <bool kIn64>
+__device__ __forceinline__ void load_tile(uint32_t* s, const void* in,
+                                          unsigned long long base,
+                                          uint32_t tile,
+                                          unsigned long long n) {
+  for (uint32_t q = threadIdx.x; q < tile / 4; q += blockDim.x) {
+    const unsigned long long g = base + 4ULL * q;
+    uint4 w;
+    if (g + 4 > n) {
+      w = make_uint4(load_key(in, kIn64, g, n), load_key(in, kIn64, g + 1, n),
+                     load_key(in, kIn64, g + 2, n),
+                     load_key(in, kIn64, g + 3, n));
+    } else if (kIn64) {
+      const longlong2* p = static_cast<const longlong2*>(in) + g / 2;
+      const longlong2 a = p[0], b = p[1];
+      w = make_uint4(static_cast<uint32_t>(a.x), static_cast<uint32_t>(a.y),
+                     static_cast<uint32_t>(b.x), static_cast<uint32_t>(b.y));
+    } else {
+      w = static_cast<const uint4*>(in)[g / 4];
+    }
+    *reinterpret_cast<uint4*>(s + swizzle(4 * q)) = w;
   }
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads)
-local_pass_kernel(uint32_t* __restrict__ x, unsigned long long size) {
-  extern __shared__ uint32_t s[];
-  const unsigned long long base =
-      static_cast<unsigned long long>(blockIdx.x) * kTile;
-  for (int t = threadIdx.x; t < kTile; t += kThreads) s[t] = x[base + t];
-  __syncthreads();
-  if (size == 0) {
-    for (int stage = 1; stage <= kTileLog; ++stage) {
-      for (int sub = stage - 1; sub >= 0; --sub) {
-        tile_substage(s, base, 1ULL << stage, sub);
+// The tile back to device memory, as load_tile read it (keys past n are
+// not stored).
+template <bool kOut64>
+__device__ __forceinline__ void store_tile(const uint32_t* s, void* out,
+                                           unsigned long long base,
+                                           uint32_t tile,
+                                           unsigned long long n) {
+  for (uint32_t q = threadIdx.x; q < tile / 4; q += blockDim.x) {
+    const unsigned long long g = base + 4ULL * q;
+    const uint4 w = *reinterpret_cast<const uint4*>(s + swizzle(4 * q));
+    if (g + 4 > n) {
+      const uint32_t k[4] = {w.x, w.y, w.z, w.w};
+      for (int i = 0; i < 4 && g + i < n; ++i) {
+        if (kOut64) {
+          static_cast<long long*>(out)[g + i] = k[i];
+        } else {
+          static_cast<uint32_t*>(out)[g + i] = k[i];
+        }
       }
+    } else if (kOut64) {
+      longlong2* p = static_cast<longlong2*>(out) + g / 2;
+      p[0] = make_longlong2(w.x, w.y);
+      p[1] = make_longlong2(w.z, w.w);
+    } else {
+      static_cast<uint4*>(out)[g / 4] = w;
+    }
+  }
+}
+
+// An orbit's 16 keys between shared memory and registers.  wlo == 0 is
+// the low layout: 16 consecutive keys, registers on index bits 0..3 and
+// the lanes on bits 4..8, read as four 16-byte vectors.
+__device__ __forceinline__ void load_orbit(const uint32_t* s, uint32_t li0,
+                                           int wlo, uint32_t (&v)[kKeys]) {
+  if (wlo == 0) {
+#pragma unroll
+    for (int q = 0; q < kKeys / 4; ++q) {
+      const uint4 w =
+          *reinterpret_cast<const uint4*>(s + swizzle(li0 + 4 * q));
+      v[4 * q] = w.x;
+      v[4 * q + 1] = w.y;
+      v[4 * q + 2] = w.z;
+      v[4 * q + 3] = w.w;
     }
   } else {
-    for (int sub = kTileLog - 1; sub >= 0; --sub) {
-      tile_substage(s, base, size, sub);
-    }
+#pragma unroll
+    for (int e = 0; e < kKeys; ++e)
+      v[e] = s[swizzle(li0 | (static_cast<uint32_t>(e) << wlo))];
   }
-  for (int t = threadIdx.x; t < kTile; t += kThreads) x[base + t] = s[t];
 }
 
-__global__ void __launch_bounds__(256)
-global_substage_kernel(uint32_t* __restrict__ x, unsigned long long half,
-                       unsigned long long size, int log_k) {
-  const unsigned long long p =
-      static_cast<unsigned long long>(blockIdx.x) * blockDim.x +
+__device__ __forceinline__ void store_orbit(uint32_t* s, uint32_t li0,
+                                            int wlo,
+                                            const uint32_t (&v)[kKeys]) {
+  if (wlo == 0) {
+#pragma unroll
+    for (int q = 0; q < kKeys / 4; ++q)
+      *reinterpret_cast<uint4*>(s + swizzle(li0 + 4 * q)) =
+          make_uint4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kKeys; ++e)
+      s[swizzle(li0 | (static_cast<uint32_t>(e) << wlo))] = v[e];
+  }
+}
+
+// -- the kernels ------------------------------------------------------------
+
+// Stages 1..last of the tile in shared memory, in order, (stage s,
+// stride bit j), cut into groups: from the cursor, every substage whose
+// stride bit is in the thread's window of 4 register bits or among the 5
+// lane bits.  Strides 2^8..1 take the low layout; a larger stride 2^j
+// the window [j - 3, j] with the lanes on index bits 0..4.  Stages 1..9
+// are one group.  Every key has its own direction here.
+__device__ __forceinline__ void stages_by_cursor(uint32_t* s,
+                                                 unsigned long long base,
+                                                 int tile_log, int last) {
+  const uint32_t tile = 1u << tile_log;
+  int stage = 1, j = 0;
+  while (stage <= last) {
+    const int wlo = j >= kMinTileLog ? j - kKeysLog + 1 : 0;
+    const int lpos = wlo == 0 ? kKeysLog : 0;
+    int end_stage = stage, end_j = j;
+    while (end_stage <= last &&
+           ((end_j >= wlo && end_j < wlo + kKeysLog) ||
+            (end_j >= lpos && end_j < lpos + kLaneLog))) {
+      if (--end_j < 0) end_j = end_stage++;
+    }
+    for (uint32_t o = threadIdx.x; o < tile / kKeys; o += blockDim.x) {
+      const uint32_t li0 = orbit_index(o, wlo, 0);
+      uint32_t v[kKeys];
+      load_orbit(s, li0, wlo, v);
+      for (int cs = stage, cj = j; cs != end_stage || cj != end_j;) {
+        const uint32_t desc = descending_mask(
+            li0, wlo, cs < tile_log ? 1u << cs : 0u,
+            cs == tile_log && ((base >> tile_log) & 1ULL));
+        switch (cj - wlo) {
+          case 0: register_step<0>(v, desc); break;
+          case 1: register_step<1>(v, desc); break;
+          case 2: register_step<2>(v, desc); break;
+          case 3: register_step<3>(v, desc); break;
+          default: shuffle_step(v, cj - lpos, desc);
+        }
+        if (--cj < 0) cj = cs++;
+      }
+      store_orbit(s, li0, wlo, v);
+    }
+    __syncthreads();
+    stage = end_stage;
+    j = end_j;
+  }
+}
+
+// One group of a 2^15-key tile with the strides 2^J..2^Lo in layout W,
+// where the direction is one per thread: the tile index's bit `sbit`
+// (the stage's size bit, above every lane and window bit of the group),
+// or `bdesc` for the whole block when sbit < 0.
+template <int W, int J, int Lo>
+__device__ __forceinline__ void uniform_group(uint32_t* s, int sbit,
+                                              bool bdesc) {
+  for (uint32_t o = threadIdx.x; o < kTile / kKeys; o += blockDim.x) {
+    const uint32_t li0 = orbit_index(o, W, 0);
+    uint32_t v[kKeys];
+    load_orbit(s, li0, W, v);
+    const uint32_t mask =
+        (sbit >= 0 ? ((li0 >> sbit) & 1u) != 0 : bdesc) ? kPad : 0u;
+    complement(v, mask);
+    ascending_steps<W, J, Lo>(v);
+    complement(v, mask);
+    store_orbit(s, li0, W, v);
+  }
+  __syncthreads();
+}
+
+// Strides 2^14..1 of a stage in a 2^15-key tile: windows [11..14] and
+// [7..10], then the low layout (2^6..2^4 on lanes, 2^3..1 in registers).
+__device__ __forceinline__ void tile_strides(uint32_t* s, int sbit,
+                                             bool bdesc) {
+  uniform_group<11, 14, 11>(s, sbit, bdesc);
+  uniform_group<7, 10, 7>(s, sbit, bdesc);
+  uniform_group<0, 6, 0>(s, sbit, bdesc);
+}
+
+// The first pass: stages 1..tile_log inside each tile.  In a 2^15-key
+// tile every group is unrolled at compile time: stages 1..9 in the low
+// layout, then each later stage's windows and low layout.  A smaller
+// tile (a sort of at most 2^14 keys) runs its stages by cursor.
+template <bool kIn64, bool kOut64>
+__global__ void __launch_bounds__(kMaxThreads)
+first_pass_kernel(const void* in, void* out, unsigned long long n,
+                  int tile_log) {
+  extern __shared__ uint4 smem[];
+  uint32_t* s = reinterpret_cast<uint32_t*>(smem);
+  const uint32_t tile = 1u << tile_log;
+  const unsigned long long base =
+      static_cast<unsigned long long>(blockIdx.x) << tile_log;
+  load_tile<kIn64>(s, in, base, tile, n);
+  if (tile_log == kTileLog) {
+    for (uint32_t o = threadIdx.x; o < kTile / kKeys; o += blockDim.x) {
+      const uint32_t li0 = orbit_index(o, 0, 0);
+      uint32_t v[kKeys];
+      load_orbit(s, li0, 0, v);
+      low_stages<kMinTileLog>(v, li0);
+      store_orbit(s, li0, 0, v);
+    }
+    __syncthreads();
+    uniform_group<6, 9, 6>(s, 10, false);
+    uniform_group<0, 5, 0>(s, 10, false);
+    uniform_group<7, 10, 7>(s, 11, false);
+    uniform_group<0, 6, 0>(s, 11, false);
+    uniform_group<8, 11, 8>(s, 12, false);
+    uniform_group<0, 7, 0>(s, 12, false);
+    uniform_group<9, 12, 9>(s, 13, false);
+    uniform_group<0, 8, 0>(s, 13, false);
+    uniform_group<10, 13, 10>(s, 14, false);
+    uniform_group<6, 9, 6>(s, 14, false);
+    uniform_group<0, 5, 0>(s, 14, false);
+    tile_strides(s, -1, (base >> kTileLog) & 1ULL);
+  } else {
+    stages_by_cursor(s, base, tile_log, tile_log);
+  }
+  store_tile<kOut64>(s, out, base, tile, n);
+}
+
+// A later local pass: stage `size` > tile, so the tile base alone sets
+// the direction of every key of the block.
+template <bool kOut64>
+__global__ void __launch_bounds__(kMaxThreads)
+later_pass_kernel(const uint32_t* in, void* out, unsigned long long n,
+                  unsigned long long size) {
+  extern __shared__ uint4 smem[];
+  uint32_t* s = reinterpret_cast<uint32_t*>(smem);
+  const unsigned long long base =
+      static_cast<unsigned long long>(blockIdx.x) << kTileLog;
+  load_tile<false>(s, in, base, kTile, n);
+  tile_strides(s, -1, (base & size) != 0);
+  store_tile<kOut64>(s, out, base, kTile, n);
+}
+
+__device__ __forceinline__ void global_steps(uint32_t (&v)[kKeys], int hi,
+                                             int lo) {
+  const int wlo = hi - kKeysLog + 1;
+  for (int j = hi; j >= lo; --j) {
+    switch (j - wlo) {
+      case 0: ascending_register_step<0>(v); break;
+      case 1: ascending_register_step<1>(v); break;
+      case 2: ascending_register_step<2>(v); break;
+      default: ascending_register_step<3>(v);
+    }
+  }
+}
+
+// Strides 2^hi down to 2^lo (hi - lo < kKeysLog) of stage `size` over
+// the whole array; the window is [hi - 3, hi], so the direction bit
+// (above hi, and above the block's index bits) is one per block.
+__global__ void __launch_bounds__(kGlobalThreads)
+global_pass_kernel(uint32_t* __restrict__ x, unsigned long long n,
+                   unsigned long long size, int hi, int lo) {
+  const unsigned long long o =
+      static_cast<unsigned long long>(blockIdx.x) * kGlobalThreads +
       threadIdx.x;
-  if (p >= half) return;
-  const unsigned long long k = 1ULL << log_k;
-  const unsigned long long i = ((p >> log_k) << (log_k + 1)) | (p & (k - 1));
-  uint32_t a = x[i];
-  uint32_t b = x[i + k];
-  compare_exchange(a, b, (i & size) == 0);
-  x[i] = a;
-  x[i + k] = b;
+  if (o >= n / kKeys) return;
+  const int wlo = hi - kKeysLog + 1;
+  const unsigned long long i0 = orbit_index(o, wlo, 0);
+  uint32_t v[kKeys];
+#pragma unroll
+  for (int e = 0; e < kKeys; ++e)
+    v[e] = x[i0 | (static_cast<unsigned long long>(e) << wlo)];
+  const uint32_t mask = (i0 & size) ? kPad : 0u;
+  complement(v, mask);
+  global_steps(v, hi, lo);
+  complement(v, mask);
+#pragma unroll
+  for (int e = 0; e < kKeys; ++e)
+    x[i0 | (static_cast<unsigned long long>(e) << wlo)] = v[e];
+}
+
+// Raise a kernel's dynamic shared-memory limit to the full tile; the
+// callers do it once per process and kernel.
+template <typename Kernel>
+cudaError_t allow_full_tile(Kernel kernel) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kTile * static_cast<int>(sizeof(uint32_t)));
+}
+
+template <bool kIn64, bool kOut64>
+cudaError_t launch_first(const void* in, void* out, int64_t n,
+                         cudaStream_t stream) {
+  static const cudaError_t raised =
+      allow_full_tile(first_pass_kernel<kIn64, kOut64>);
+  if (raised != cudaSuccess) return raised;
+  int log_n = 0;
+  while ((int64_t{1} << log_n) < n) ++log_n;
+  const int tile_log = log_n < kMinTileLog ? kMinTileLog
+                       : log_n > kTileLog  ? kTileLog
+                                           : log_n;
+  const int tile = 1 << tile_log;
+  const unsigned blocks = static_cast<unsigned>(n > tile ? n >> tile_log : 1);
+  const int threads = tile / kKeys < kMaxThreads ? tile / kKeys : kMaxThreads;
+  first_pass_kernel<kIn64, kOut64><<<blocks, threads,
+                                     tile * sizeof(uint32_t), stream>>>(
+      in, out, static_cast<unsigned long long>(n), tile_log);
+  return cudaGetLastError();
+}
+
+template <bool kOut64>
+cudaError_t launch_later(const void* in, void* out, int64_t n,
+                         uint64_t size, cudaStream_t stream) {
+  static const cudaError_t raised =
+      allow_full_tile(later_pass_kernel<kOut64>);
+  if (raised != cudaSuccess) return raised;
+  later_pass_kernel<kOut64><<<static_cast<unsigned>(n >> kTileLog),
+                              kMaxThreads, kTile * sizeof(uint32_t),
+                              stream>>>(static_cast<const uint32_t*>(in),
+                                        out,
+                                        static_cast<unsigned long long>(n),
+                                        size);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entries for ctypes.  x: n u32 keys in device memory, sorted in
-// place; n a power of two and a multiple of kTile.  Each launches on
-// `stream` without synchronising and returns cudaGetLastError() (or the
-// error of raising the shared-memory limit).
-extern "C" int bitonic_local_pass(uint32_t* x, int64_t n, uint64_t size,
+// C entries for ctypes.  Each launches one kernel on `stream` without
+// synchronising and returns cudaGetLastError() (or the error of raising
+// the shared-memory limit).
+//
+// bitonic_local_pass: n keys, a power of two.  size == 0: the first pass
+// (n at most 2^15, one tile: the whole sort, or a multiple of 2^15);
+// `in` holds int64 (in64) or u32 keys.  size > 2^15: a later pass over
+// u32 keys.  `out` receives int64 (out64) or u32; in == out is allowed.
+extern "C" int bitonic_local_pass(const void* in, void* out, int64_t n,
+                                  uint64_t size, int in64, int out64,
                                   cudaStream_t stream) {
-  const int smem = kTile * static_cast<int>(sizeof(uint32_t));
-  const cudaError_t err = cudaFuncSetAttribute(
-      local_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  local_pass_kernel<<<static_cast<unsigned>(n / kTile), kThreads, smem,
-                      stream>>>(x, size);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err;
+  if (size != 0) {
+    err = out64 ? launch_later<true>(in, out, n, size, stream)
+                : launch_later<false>(in, out, n, size, stream);
+  } else if (in64) {
+    err = out64 ? launch_first<true, true>(in, out, n, stream)
+                : launch_first<true, false>(in, out, n, stream);
+  } else {
+    err = out64 ? launch_first<false, true>(in, out, n, stream)
+                : launch_first<false, false>(in, out, n, stream);
+  }
+  return static_cast<int>(err);
 }
 
-extern "C" int bitonic_global_substage(uint32_t* x, int64_t n,
-                                       uint64_t size, int log_k,
-                                       cudaStream_t stream) {
-  const unsigned long long half = static_cast<unsigned long long>(n) / 2;
-  global_substage_kernel<<<static_cast<unsigned>((half + 255) / 256), 256,
-                           0, stream>>>(x, half, size, log_k);
+// bitonic_global_pass: strides 2^log_hi down to 2^log_lo of stage `size`
+// over n u32 keys in place; log_hi - log_lo < 4, 2^log_hi >= 2^15.
+extern "C" int bitonic_global_pass(uint32_t* x, int64_t n, uint64_t size,
+                                   int log_hi, int log_lo,
+                                   cudaStream_t stream) {
+  const unsigned long long orbits = static_cast<unsigned long long>(n) / kKeys;
+  global_pass_kernel<<<static_cast<unsigned>(
+                           (orbits + kGlobalThreads - 1) / kGlobalThreads),
+                       kGlobalThreads, 0, stream>>>(
+      x, static_cast<unsigned long long>(n), size, log_hi, log_lo);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,8 +17,6 @@ import shutil
 import subprocess
 from pathlib import Path
 
-import torch
-
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -26,6 +24,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LOADED: dict = {}
+# (library, entry) -> its ctypes function with argtypes and restype set
+_ENTRIES: dict = {}
 
 
 def find_nvcc() -> str:
@@ -84,17 +84,28 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def _entry(lib, entry: str, argtypes):
+    """C entry `entry` of the loaded library `lib`, typed once: its
+    argtypes are `argtypes` plus the trailing stream, it returns int."""
+    fn = _ENTRIES.get((lib, entry))
+    if fn is None:
+        fn = getattr(lib, entry)
+        fn.argtypes = (*argtypes, ctypes.c_void_p)
+        fn.restype = ctypes.c_int
+        _ENTRIES[(lib, entry)] = fn
+    return fn
+
+
 def launch(counts: dict, kernel: str, lib: str, entry: str, argtypes,
-           device, *args) -> None:
+           stream: int, *args) -> None:
     """One kernel launch: call C entry `entry` of csrc/<lib>.cu, which
-    launches exactly one kernel on the device's current stream (no sync)
-    and returns cudaGetLastError(), then add one to counts[kernel].
+    launches exactly one kernel on `stream` (a raw handle, as
+    torch.cuda.current_stream(device).cuda_stream gives it; no sync) and
+    returns cudaGetLastError(), then add one to counts[kernel].
     `argtypes` leaves out the trailing stream argument; pointers are
     passed as ints.  Raises RuntimeError on a launch error, uncounted."""
-    fn = getattr(load(lib), entry)
-    fn.argtypes = (*argtypes, ctypes.c_void_p)
-    fn.restype = ctypes.c_int
-    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    fn = _entry(load(lib), entry, argtypes)
+    err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     counts[kernel] += 1

@@ -28,7 +28,7 @@ import torch
 
 from cuburn_tpu_torch.kernels import build as _build
 from cuburn_tpu_torch.ops.sort import (SENTINEL, merge_sorted_records,
-                                       sort_records)
+                                       sort_records, sort_records_reference)
 
 # kernel name -> CUDA kernel launches through its wrapper: one per
 # flush for all but win_flush_rgb16, which launches two (its runs and
@@ -142,14 +142,21 @@ def _launch(entry: str, device, *args):
     """One launch of C entry `entry` on the device's current stream (no
     sync), counted in LAUNCHES under its kernel."""
     lib, kernel, argtypes = _ENTRIES[entry]
-    _build.launch(LAUNCHES, kernel, lib, entry, argtypes, device, *args)
+    _build.launch(LAUNCHES, kernel, lib, entry, argtypes,
+                  torch.cuda.current_stream(device).cuda_stream, *args)
+
+
+def _aligned(t):
+    """t contiguous on a 16-byte boundary (the kernels read it in 16-byte
+    vectors)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _aligned_pal4(palette_hi):
     """Contiguous (K, 4) palette rows on a 16-byte boundary (the kernels
     read rows as float4)."""
-    pal4 = _pal4(palette_hi).contiguous()
-    return pal4.clone() if pal4.data_ptr() % 16 else pal4
+    return _aligned(_pal4(palette_hi))
 
 
 # -- pallas_win: sorted records, one add per sorted run --------------------
@@ -157,11 +164,11 @@ def _aligned_pal4(palette_hi):
 def accumulate_windowed_reference(hist, packed_records, palette_hi,
                                   n_bins: int, color_bits: int,
                                   weight=None):
-    """The plain PyTorch flush: sort, unpack, then index_add_ of
+    """The plain PyTorch flush: torch.sort, unpack, then index_add_ of
     weight * pal4[q] * count per record, where sentinels count 0.
     Updates hist in place; returns it."""
     _check(hist, packed_records, palette_hi, n_bins, color_bits)
-    recs = sort_records(packed_records)
+    recs = sort_records_reference(packed_records)
     return _add_rows(hist, recs, palette_hi, n_bins, color_bits,
                      recs != SENTINEL, _weight(weight))
 
@@ -174,15 +181,16 @@ def accumulate_windowed(hist, packed_records, palette_hi, n_bins: int,
     4-column opacity-extended row as it is) into bin addr.
 
     CPU tensors take the plain version; CUDA tensors sort with
-    torch.sort and launch win_flush.cu, which adds weight times each
-    sorted run's sum.  Density is exact at weight 1.0 with a 3-column
-    palette; rgb agrees within float32 reassociation."""
+    sort_records (the tiled bitonic sort kernel) and launch
+    win_flush.cu, which adds weight times each sorted run's sum.
+    Density is exact at weight 1.0 with a 3-column palette; rgb agrees
+    within float32 reassociation."""
     _check(hist, packed_records, palette_hi, n_bins, color_bits)
     if _device_of(hist) == "cpu":
         return accumulate_windowed_reference(
             hist, packed_records, palette_hi, n_bins, color_bits, weight)
     pal4 = _aligned_pal4(palette_hi)
-    recs = sort_records(packed_records).contiguous()
+    recs = _aligned(sort_records(packed_records))
     _launch("win_flush", hist.device, recs.data_ptr(), recs.numel(),
             pal4.data_ptr(), color_bits, n_bins, _weight(weight),
             hist.data_ptr())
@@ -224,12 +232,14 @@ def accumulate_packed(hist, packed_records, palette_hi, n_bins: int,
 
 # -- pallas_merged: sort, run-merge, one add per unique record -------------
 
-def merge_records(packed_records, n_bins: int, color_bits: int):
-    """sort_records, then merge_sorted_records: (unique records, int32
-    counts), uniques first, padded with the junk record at count 0.
-    The power-of-two padding's sentinels merge into one record, whose
-    count is zeroed here."""
-    uniq, counts = merge_sorted_records(sort_records(packed_records),
+def merge_records(packed_records, n_bins: int, color_bits: int,
+                  sort=sort_records):
+    """sort (sort_records, or the plain version's torch.sort), then
+    merge_sorted_records: (unique records, int32 counts), uniques
+    first, padded with the junk record at count 0.  The power-of-two
+    padding's sentinels merge into one record, whose count is zeroed
+    here."""
+    uniq, counts = merge_sorted_records(sort(packed_records),
                                         n_bins << color_bits)
     return uniq, torch.where(uniq == SENTINEL, 0, counts)
 
@@ -237,10 +247,12 @@ def merge_records(packed_records, n_bins: int, color_bits: int):
 def accumulate_merged_reference(hist, packed_records, palette_hi,
                                 n_bins: int, color_bits: int,
                                 weight=None):
-    """The plain merged flush: merge_records, then index_add_ of
-    weight * count * pal4[q] per unique record.  In place."""
+    """The plain merged flush: merge_records after torch.sort, then
+    index_add_ of weight * count * pal4[q] per unique record.  In
+    place."""
     _check(hist, packed_records, palette_hi, n_bins, color_bits)
-    uniq, counts = merge_records(packed_records, n_bins, color_bits)
+    uniq, counts = merge_records(packed_records, n_bins, color_bits,
+                                 sort_records_reference)
     return _add_rows(hist, uniq, palette_hi, n_bins, color_bits, counts,
                      _weight(weight))
 
@@ -250,8 +262,9 @@ def accumulate_merged(hist, packed_records, palette_hi, n_bins: int,
     """Sort + run-merge + count-weighted flush IN PLACE
     (`accumulate_merged_pallas`, backend `pallas_merged`): duplicate
     records collapse into one update of count * pal4[q].  CUDA tensors
-    merge with torch ops and launch scatter_flush.cu's merged entry
-    (one float4 atomicAdd per unique record, count 0 skipped)."""
+    sort with sort_records, merge with torch ops and launch
+    scatter_flush.cu's merged entry (one float4 atomicAdd per unique
+    record, count 0 skipped)."""
     _check(hist, packed_records, palette_hi, n_bins, color_bits)
     if _device_of(hist) == "cpu":
         return accumulate_merged_reference(
@@ -313,8 +326,8 @@ def accumulate_windowed_rgb16(hist_split, packed_records, palette_hi,
     (`accumulate_windowed_pallas_rgb16`, backend `pallas_rgb16`).
     Density never leaves float32, so it stays exact at weight 1.0 with
     a 3-column palette; rgb is rounded to bf16 once per touched bin per
-    flush, never once per record.  CUDA tensors sort with torch.sort and
-    launch win_flush_rgb16.cu, which sums each sorted run in float32 and
+    flush, never once per record.  CUDA tensors sort with sort_records
+    and launch win_flush_rgb16.cu, which sums each sorted run in float32 and
     writes its bin once.  Returns (dens, rgb)."""
     _check_split(hist_split, packed_records, palette_hi, n_bins,
                  color_bits)

@@ -1,30 +1,48 @@
 """Sorting and run-merging packed log records.
 
 Port of `cuburn_tpu/ops/sort.py::sort_records` and
-`merge_sorted_records`.  The JAX package sorts with XLA (a bitonic
-network or `lax.sort`), not with a Pallas kernel, so the port uses the
-library sort, `torch.sort`.  Its Pallas tiled sort has its own port in
-`ops/tiled_sort.py`.  The records are int64 tensors holding u32 values.
+`merge_sorted_records`.  The JAX package's default sort is its bitonic
+network; the port sorts CUDA tensors with its hand-written tiled bitonic
+sort (`ops/tiled_sort.py`, the port of the Pallas tiled sort) and CPU
+tensors with `torch.sort`.  The records are int64 tensors holding u32
+values.
 """
 
 from __future__ import annotations
 
 import torch
 
+from cuburn_tpu_torch.ops.tiled_sort import bitonic_sort_u32_tiled
+
 SENTINEL = 0xFFFFFFFF
 
 
-def sort_records(records: torch.Tensor) -> torch.Tensor:
-    """Ascending sort of a flat array of packed records (any length).
-
-    Pads to the next power of two with 0xFFFFFFFF sentinels that sort
-    to the end, as the JAX counterpart does; the flush skips them."""
+def pad_records(records: torch.Tensor) -> torch.Tensor:
+    """The flat records padded to the next power of two with 0xFFFFFFFF
+    sentinels, which sort to the end, as the JAX counterpart does; the
+    flushes skip them."""
     flat = records.reshape(-1)
     n = flat.shape[0]
     pow2 = 1 << max(n - 1, 0).bit_length()
     if pow2 != n:
         flat = torch.cat([flat, flat.new_full((pow2 - n,), SENTINEL)])
+    return flat.contiguous()
+
+
+def sort_records(records: torch.Tensor) -> torch.Tensor:
+    """Ascending sort of a flat array of packed records (any length),
+    padded by pad_records.  CUDA tensors launch the tiled bitonic sort
+    kernel (one launch a pass); CPU tensors take torch.sort."""
+    flat = pad_records(records)
+    if flat.device.type == "cuda":
+        return bitonic_sort_u32_tiled(flat)
     return torch.sort(flat).values
+
+
+def sort_records_reference(records: torch.Tensor) -> torch.Tensor:
+    """sort_records by torch.sort on any device: the plain flushes sort
+    with it, so that a plain version never launches a kernel."""
+    return torch.sort(pad_records(records)).values
 
 
 def merge_sorted_records(sorted_recs: torch.Tensor, junk_record: int):

@@ -1,4 +1,4 @@
-"""Tiled bitonic sort: tile-local fused passes plus global substages.
+"""Tiled bitonic sort: tile-local fused passes plus fused global passes.
 
 Port of `cuburn_tpu/ops/pallas_sort.py::bitonic_sort_u32_tiled` and its
 Pallas kernel `_tile_kernel`.  The ascending bitonic network over N =
@@ -6,19 +6,21 @@ Pallas kernel `_tile_kernel`.  The ascending bitonic network over N =
 
     local(all stages 1..log TILE)            # every tile sorted alone
     for each later stage (block size 2^s):
-        global substages, stride 2^(s-1) .. TILE
+        global passes, strides 2^(s-1) .. TILE, up to FUSE consecutive
+        strides a pass
         local(size 2^s: strides TILE/2 .. 1) # one fused pass
 
-A compare-exchange pair (i, i + k) sorts descending when i & size is
-set, with i the GLOBAL index, so each tile-local pass leaves exactly
-the bitonic intermediate the next global stage expects.
+N <= TILE is one local pass.  A compare-exchange pair (i, i + k) sorts
+descending when i & size is set, with i the GLOBAL index, so each
+tile-local pass leaves exactly the bitonic intermediate the next global
+stage expects.
 
-On a CUDA tensor `bitonic_sort_u32_tiled` narrows the keys to 32 bits
-and runs the schedule through `csrc/bitonic_sort.cu` (TILE = 2^15 keys
-in shared memory; the TPU's 2^16 does not fit a Hopper block); on a CPU
-tensor it runs the same schedule as torch compare-exchange steps
-(`bitonic_sort_reference`).  The JAX Renderer never calls this sort,
-and neither does the port's: it sorts with `torch.sort`.
+On a CUDA tensor `bitonic_sort_u32_tiled` runs the schedule through
+`csrc/bitonic_sort.cu`, one launch a pass (TILE = 2^15 keys in shared
+memory; the TPU's 2^16 does not fit a Hopper block): the first pass
+reads the int64 keys and the last writes int64, the passes between work
+on u32.  On a CPU tensor it runs the same schedule as torch
+compare-exchange steps (`bitonic_sort_reference`).
 """
 
 from __future__ import annotations
@@ -31,32 +33,36 @@ from cuburn_tpu_torch.kernels import build as _build
 
 TILE_LOG = 15                 # csrc/bitonic_sort.cu kTileLog
 TILE = 1 << TILE_LOG
-MASK32 = 0xFFFFFFFF
+FUSE = 4                      # strides a global pass fuses: the kernel's
+                              # 4-bit window of 16 keys a thread (kKeysLog)
 
 # CUDA kernel launches of the sort in this process: one per pass of
 # bitonic_schedule, so len(bitonic_schedule(n)) per sort of n keys.
 # Callers reset it to count a run.
 LAUNCHES = {"bitonic_sort": 0}
+_P, _I64, _U64, _INT = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64,
+                        ctypes.c_int)
 # argtypes of bitonic_sort.cu's C entries, before the stream
-_LOCAL_ARGS = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64)
-_GLOBAL_ARGS = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64,
-                ctypes.c_int)
+_LOCAL_ARGS = (_P, _P, _I64, _U64, _INT, _INT)
+_GLOBAL_ARGS = (_P, _I64, _U64, _INT, _INT)
 
 
 def bitonic_schedule(n: int, tile: int = TILE):
-    """The passes that sort n keys (n and tile powers of two, n >=
-    tile): ("local", 0) runs stages 1..log2(tile) inside each tile;
-    ("global", size, k) one substage of stride k >= tile over the whole
+    """The passes that sort n keys (n and tile powers of two):
+    ("local", 0) runs stages 1..log2(min(n, tile)) inside each tile;
+    ("global", size, k_hi, k_lo) the strides k_hi, k_hi/2, .., k_lo
+    (at most FUSE of them, all >= tile) of stage `size` over the whole
     array; ("local", size) the strides tile/2..1 of stage `size` inside
-    each tile."""
+    each tile.  n <= tile is the single local pass."""
     log_n, tile_log = n.bit_length() - 1, tile.bit_length() - 1
-    if n & (n - 1) or tile & (tile - 1) or n < tile:
+    if n < 1 or n & (n - 1) or tile < 2 or tile & (tile - 1):
         raise ValueError(f"n = {n} and tile = {tile} must be powers of "
-                         "two with n >= tile")
+                         "two (tile >= 2)")
     passes = [("local", 0)]
     for stage in range(tile_log + 1, log_n + 1):
-        passes += [("global", 1 << stage, 1 << sub)
-                   for sub in range(stage - 1, tile_log - 1, -1)]
+        for hi in range(stage - 1, tile_log - 1, -FUSE):
+            lo = max(hi - FUSE + 1, tile_log)
+            passes.append(("global", 1 << stage, 1 << hi, 1 << lo))
         passes.append(("local", 1 << stage))
     return passes
 
@@ -76,12 +82,15 @@ def compare_exchange(x: torch.Tensor, size: int, k: int) -> torch.Tensor:
 
 def run_passes(x: torch.Tensor, passes, tile: int = TILE) -> torch.Tensor:
     """Apply schedule passes to the flat keys as compare-exchange steps
-    (a local pass's strides are all below `tile`, so each of its steps
-    stays inside a tile)."""
-    tile_log = tile.bit_length() - 1
+    (a local pass's strides are all below min(n, tile), so each of its
+    steps stays inside a tile)."""
+    tile_log = min(tile, x.numel()).bit_length() - 1
     for p in passes:
         if p[0] == "global":
-            x = compare_exchange(x, p[1], p[2])
+            k = p[2]
+            while k >= p[3]:
+                x = compare_exchange(x, p[1], k)
+                k //= 2
         elif p[1] == 0:
             for stage in range(1, tile_log + 1):
                 for sub in range(stage - 1, -1, -1):
@@ -94,11 +103,11 @@ def run_passes(x: torch.Tensor, passes, tile: int = TILE) -> torch.Tensor:
 
 def _check(keys):
     n = keys.shape[0] if keys.dim() == 1 else -1
-    if keys.dtype != torch.int64 or n < 2 * TILE or n & (n - 1) \
+    if keys.dtype != torch.int64 or n < 1 or n & (n - 1) \
             or not keys.is_contiguous():
         raise ValueError(
             "keys must be a contiguous 1-D int64 tensor (u32 values) "
-            f"whose length is a power of two >= {2 * TILE}, got "
+            "whose length is a power of two, got "
             f"{keys.dtype} {tuple(keys.shape)}")
 
 
@@ -112,26 +121,35 @@ def bitonic_sort_reference(keys: torch.Tensor,
 
 def bitonic_sort_u32_tiled(keys: torch.Tensor) -> torch.Tensor:
     """Ascending sort of a (N,) int64 tensor of u32 values, N a power of
-    two >= 2 * TILE: the values torch.sort gives, as int64.  CPU tensors
-    take bitonic_sort_reference; CUDA tensors narrow to 32 bits and run
-    the schedule through the CUDA kernels."""
+    two: the values torch.sort gives, as a new int64 tensor.  CPU
+    tensors take bitonic_sort_reference; CUDA tensors launch one kernel
+    per pass of the schedule, or raise."""
     _check(keys)
     if keys.device.type == "cpu":
         return bitonic_sort_reference(keys)
     if keys.device.type != "cuda":
         raise ValueError(f"unsupported device {keys.device}")
     n = keys.numel()
-    # u32 bit patterns in an int32 buffer: the kernels read them unsigned
-    x = torch.where(keys > 0x7FFFFFFF, keys - (1 << 32), keys) \
-        .to(torch.int32)
-    for p in bitonic_schedule(n):
+    if keys.data_ptr() % 16:        # the kernels read 16-byte vectors
+        keys = keys.clone()
+    passes = bitonic_schedule(n)
+    out = torch.empty_like(keys)
+    # the u32 keys between the first pass and the last
+    x = out if len(passes) == 1 else torch.empty(n, dtype=torch.int32,
+                                                 device=keys.device)
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    for i, p in enumerate(passes):
+        last = i == len(passes) - 1
         if p[0] == "global":
             _build.launch(LAUNCHES, "bitonic_sort", "bitonic_sort",
-                          "bitonic_global_substage", _GLOBAL_ARGS,
-                          keys.device, x.data_ptr(), n, p[1],
-                          p[2].bit_length() - 1)
+                          "bitonic_global_pass", _GLOBAL_ARGS, stream,
+                          x.data_ptr(), n, p[1], p[2].bit_length() - 1,
+                          p[3].bit_length() - 1)
         else:
+            src = keys if i == 0 else x
+            dst = out if last else x
             _build.launch(LAUNCHES, "bitonic_sort", "bitonic_sort",
-                          "bitonic_local_pass", _LOCAL_ARGS, keys.device,
-                          x.data_ptr(), n, p[1])
-    return x.to(torch.int64) & MASK32
+                          "bitonic_local_pass", _LOCAL_ARGS, stream,
+                          src.data_ptr(), dst.data_ptr(), n, p[1], i == 0,
+                          last)
+    return out

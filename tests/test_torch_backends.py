@@ -12,13 +12,15 @@ Contracts:
   for the bf16 split layout, within 2^-7 of the magnitude
   (tests/test_sort.py);
 - the plain tiled bitonic sort runs the JAX package's schedule: equal
-  to the Pallas sort's intermediate state after each pass, and to its
-  result;
+  to the Pallas sort's intermediate state after each local pass, to
+  XLA's substages after each fused global pass, and to its result; the
+  plain versions launch no kernel;
 - every backend renders: by TV distance against the JAX Renderer under
   2x JAX's two-seed floor, and on the same seed its density equals
   `pallas_win`'s bit for bit.
 """
 
+import ctypes
 from types import SimpleNamespace
 
 import numpy as np
@@ -344,7 +346,7 @@ def test_launch_counts_each_kernel_launch(monkeypatch):
     assert flush.LAUNCHES["win_flush_rgb16"] == before + 2
     counts = {"k": 0}
     with pytest.raises(RuntimeError, match="CUDA error 700"):
-        build.launch(counts, "k", "lib", "broken", (), "cuda")
+        build.launch(counts, "k", "lib", "broken", (), 0)
     assert counts == {"k": 0}
 
 
@@ -367,7 +369,7 @@ def test_plain_tiled_sort_runs_the_jax_schedule():
     n, tile = 2 * jps.TILE, jps.TILE
     keys = _sign_bit_keys(n)
     passes = tiled_sort.bitonic_schedule(n, tile)
-    assert passes == [("local", 0), ("global", n, tile), ("local", n)]
+    assert passes == [("local", 0), ("global", n, tile, tile), ("local", n)]
     x2d = jnp.asarray(keys).reshape(-1, 128)
     sched = [(1 << s, 1 << sub) for s in range(1, jps.TILE_LOG + 1)
              for sub in range(s - 1, -1, -1)]
@@ -392,11 +394,136 @@ def test_tiled_sort_cpu_route_matches_torch_sort():
     keys = _i64(_sign_bit_keys(n, seed=3))
     passes = tiled_sort.bitonic_schedule(n)
     assert passes[0] == ("local", 0) and passes[-1] == ("local", n)
-    assert sum(p[0] == "global" for p in passes) == 1 + 2
+    # stage 2^16: stride 2^15; stage 2^17: strides 2^16 and 2^15 fused
+    assert [p for p in passes if p[0] == "global"] == [
+        ("global", 2 * tiled_sort.TILE, tiled_sort.TILE, tiled_sort.TILE),
+        ("global", n, 2 * tiled_sort.TILE, tiled_sort.TILE)]
     before = tiled_sort.LAUNCHES["bitonic_sort"]
     out = tiled_sort.bitonic_sort_u32_tiled(keys)
     assert tiled_sort.LAUNCHES["bitonic_sort"] == before   # no kernel on CPU
     assert torch.equal(out, torch.sort(keys).values)
+
+
+@pytest.mark.parametrize("log_n", [9, 12])
+def test_fused_global_pass_equals_xla_substages(log_n):
+    """Each global pass of the schedule fuses up to FUSE strides; from the
+    state before it, the plain version's state after it equals that many
+    XLA substages of the Pallas sort in a row."""
+    n, tile = 1 << log_n, 8
+    keys = _sign_bit_keys(n, seed=log_n)
+    passes = tiled_sort.bitonic_schedule(n, tile)
+    idx = jnp.arange(n, dtype=jnp.uint32)
+    x = _i64(keys)
+    fused = 0
+    for p in passes:
+        if p[0] == "global":
+            strides = [p[2] >> i for i in range(p[2].bit_length())
+                       if p[2] >> i >= p[3]]
+            assert 1 <= len(strides) <= tiled_sort.FUSE
+            fused = max(fused, len(strides))
+            j = jnp.asarray(x.numpy().astype(np.uint32))
+            for k in strides:
+                j = jps._xla_substage(j, idx, p[1], k)
+            x = tiled_sort.run_passes(x, [p], tile)
+            np.testing.assert_array_equal(x.numpy(),
+                                          np.asarray(j).astype(np.int64))
+        else:
+            x = tiled_sort.run_passes(x, [p], tile)
+    assert fused == tiled_sort.FUSE
+    np.testing.assert_array_equal(x.numpy(), np.sort(keys).astype(np.int64))
+
+
+# passes of the sort of 2^log_n keys at TILE = 2^15: one local pass up to
+# TILE; beyond it one local pass a stage plus ceil((s - 15) / 4) global
+# passes for stage 2^s (2^22 keys: 8 local + 10 global, against the 8 +
+# 28 of one global pass a stride)
+SORT_PASSES = {**{log_n: 1 for log_n in range(0, 16)},
+               16: 3, 17: 5, 18: 7, 19: 9, 20: 12, 21: 15, 22: 18, 23: 21}
+
+
+@pytest.mark.parametrize("log_n", range(1, 24))
+def test_bitonic_schedule_pass_counts(log_n):
+    n = 1 << log_n
+    passes = tiled_sort.bitonic_schedule(n)
+    assert len(passes) == SORT_PASSES[log_n]
+    assert passes[0] == ("local", 0)
+    local = [p for p in passes if p[0] == "local"]
+    assert len(local) == 1 + max(log_n - tiled_sort.TILE_LOG, 0)
+    for p in passes:
+        if p[0] == "global":
+            assert tiled_sort.TILE <= p[3] <= p[2] < p[1] <= n
+            assert p[2] // p[3] < 1 << tiled_sort.FUSE
+    # every substage of the network, once, in order
+    subs = []
+    for p in passes:
+        if p[0] == "global":
+            k = p[2]
+            while k >= p[3]:
+                subs.append((p[1], k))
+                k //= 2
+        elif p[1] == 0:
+            subs += [(1 << s, 1 << j)
+                     for s in range(1, min(log_n, tiled_sort.TILE_LOG) + 1)
+                     for j in range(s - 1, -1, -1)]
+        else:
+            subs += [(p[1], 1 << j)
+                     for j in range(tiled_sort.TILE_LOG - 1, -1, -1)]
+    assert subs == [(1 << s, 1 << j) for s in range(1, log_n + 1)
+                    for j in range(s - 1, -1, -1)]
+
+
+@pytest.mark.parametrize("n", [1, 2, 16, 512, 1 << 12, tiled_sort.TILE])
+def test_plain_sort_below_two_tiles_matches_torch_sort(n):
+    """N < 2 * TILE, which the Pallas sort hands to its plain network: one
+    local pass (N <= TILE) sorts everything."""
+    keys = _i64(_sign_bit_keys(max(n, 300), seed=n)[:n])
+    assert tiled_sort.bitonic_schedule(n) == [("local", 0)]
+    want = torch.sort(keys).values
+    assert torch.equal(tiled_sort.bitonic_sort_reference(keys), want)
+    assert torch.equal(tiled_sort.bitonic_sort_u32_tiled(keys), want)
+    assert torch.equal(tsort.sort_records(keys), want)
+
+
+def test_plain_flushes_launch_nothing(monkeypatch):
+    """The plain versions sort with torch.sort, never with sort_records
+    (which launches the sort kernel on the card), and launch no kernel."""
+    def no_launch(*args, **kwargs):
+        raise AssertionError("a plain version launched a kernel")
+    monkeypatch.setattr(build, "launch", no_launch)
+    monkeypatch.setattr(flush, "sort_records", no_launch)
+    monkeypatch.setattr(tsort, "bitonic_sort_u32_tiled", no_launch)
+    # 3000 records: the sorted flushes pad them with 1096 sentinels
+    rec = _i64(_records(14, 3000, 8))
+    pal = torch.as_tensor(_palette(15, 256, 3))
+    for plain in (flush.accumulate_windowed_reference,
+                  flush.accumulate_packed_reference,
+                  flush.accumulate_merged_reference):
+        hist = plain(thist.alloc(N_BINS, "cpu"), rec, pal, N_BINS, 8)
+        assert float(hist[:, 3].sum()) == 3000
+    dens, _ = flush.accumulate_windowed_rgb16_reference(
+        flush.alloc_split(N_BINS, "cpu"), rec, pal, N_BINS, 8)
+    assert float(dens.sum()) == 3000
+    assert torch.equal(tsort.sort_records_reference(rec)[:3000],
+                       torch.sort(rec).values)
+    assert torch.equal(tiled_sort.bitonic_sort_reference(rec[:2048]),
+                       torch.sort(rec[:2048]).values)
+
+
+def test_launch_types_each_entry_once(monkeypatch):
+    """build.launch looks up and types a C entry once per (library,
+    entry), not on every launch, and still counts every launch."""
+    lookups = []
+
+    class Lib:
+        def __getattr__(self, entry):
+            lookups.append(entry)
+            return lambda *args: 0
+    lib = Lib()
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    counts = {"k": 0}
+    for _ in range(3):
+        build.launch(counts, "k", "lib", "entry", (ctypes.c_int,), 0, 1)
+    assert lookups == ["entry"] and counts == {"k": 3}
 
 
 def test_tiled_sort_argument_checks():

@@ -8,7 +8,8 @@ machine:  python -m pytest tests/test_torch_cuda.py -q --noconftest
 Contracts as in test_torch_flush.py and test_torch_backends.py: density
 exact with a 3-column palette at weight 1.0, every channel within 1e-5
 of the bin's density otherwise; the split flush's rgb within one bf16
-ulp of its plain version; the tiled sort equal to torch.sort; a render
+ulp of its plain version; the tiled sort equal to torch.sort, and the
+sort of every sorted flush on the card; a render
 on the GPU and on the CPU from the same seed (the same starting
 trajectories) agree by TV distance under the CPU's two-seed floor.
 """
@@ -82,9 +83,14 @@ def test_kernel_matches_plain_version(cuda, backend, cols, bits, weight):
     pal = np.random.RandomState(8).rand(1 << bits, cols) \
         .astype(np.float32)
     before = flush.LAUNCHES[name]
+    sorts = tiled_sort.LAUNCHES["bitonic_sort"]
     got = _flush(kernel, rec, pal, bits, weight, cuda)
     torch.cuda.synchronize()
     assert flush.LAUNCHES[name] == before + 1
+    # the sorted flushes sort on the card with the tiled bitonic sort
+    assert tiled_sort.LAUNCHES["bitonic_sort"] == sorts + (
+        0 if backend == "pallas" else len(tiled_sort.bitonic_schedule(
+            rec.size)))
     ref = _flush(plain, rec, pal, bits, weight, "cpu")
     if cols == 3 and weight is None:
         np.testing.assert_array_equal(got[:, 3], ref[:, 3])
@@ -124,18 +130,112 @@ def test_rgb16_kernel_matches_plain_version(cuda, weight):
     assert bool(((rg.float() - rr.float()).abs() <= ulp).all())
 
 
-@pytest.mark.parametrize("n", [2 * tiled_sort.TILE, 1 << 20])
-def test_tiled_sort_matches_torch_sort(cuda, n):
-    rs = np.random.RandomState(n % 1000)
+def _sort_keys(kind, n):
+    rs = np.random.RandomState(n % 997)
     keys = rs.randint(0, 2 ** 32, n, dtype=np.uint64).astype(np.int64)
-    keys[:64] = 0xFFFFFFFF
-    keys[64:128] = 0x80000000
+    if kind == "equal":
+        keys[:] = 0x80000001
+    elif kind == "sorted":
+        keys.sort()
+    elif kind == "reversed":
+        keys = np.sort(keys)[::-1].copy()
+    elif kind == "sign_bit_sentinel":
+        keys[::3] = 0xFFFFFFFF
+        keys[1::3] = 0x80000000
+        keys[2::6] = 0
+    return keys
+
+
+@pytest.mark.parametrize("kind", ["random", "equal", "sorted", "reversed",
+                                  "sign_bit_sentinel"])
+@pytest.mark.parametrize("n", [2, 1024, tiled_sort.TILE,
+                               2 * tiled_sort.TILE, 1 << 20])
+def test_tiled_sort_matches_torch_sort(cuda, n, kind):
+    keys = _sort_keys(kind, n)
     k = torch.as_tensor(keys, device=cuda)
     before = tiled_sort.LAUNCHES["bitonic_sort"]
     got = tiled_sort.bitonic_sort_u32_tiled(k)
     assert tiled_sort.LAUNCHES["bitonic_sort"] \
         == before + len(tiled_sort.bitonic_schedule(n))
+    assert got.dtype == torch.int64 and got.data_ptr() != k.data_ptr()
     assert torch.equal(got, torch.sort(k).values)
+    assert torch.equal(k.cpu(), torch.as_tensor(keys))   # input untouched
+
+
+# records a block of win_flush.cu (its kTile)
+WIN_TILE = 4096
+
+
+def _sorted_records(case, bits=8):
+    """Sorted records (int64 numpy) shaped to hit win_flush.cu's tile
+    edges: mostly junk; a run exactly one tile long on a tile boundary;
+    one run over many tiles; a tail of sentinels; a length that is no
+    multiple of the tile."""
+    rs = np.random.RandomState(len(case))
+    if case == "junk_97":
+        n = 1 << 17
+        addr = np.concatenate([rs.randint(0, N_BINS, n * 3 // 100),
+                               np.full(n - n * 3 // 100, N_BINS)])
+    elif case == "run_one_tile_aligned":
+        addr = np.concatenate([np.arange(WIN_TILE) * 3,
+                               np.full(WIN_TILE, 20000),
+                               rs.randint(20001, N_BINS + 1, 3 * WIN_TILE)])
+    elif case == "run_many_tiles":
+        addr = np.concatenate([rs.randint(0, 777, 5000),
+                               np.full(5 * WIN_TILE + 123, 777),
+                               rs.randint(778, N_BINS, 7000)])
+    elif case == "sentinel_tail":
+        addr = rs.randint(0, N_BINS + 1, 5000)
+    else:   # ragged
+        addr = np.concatenate([rs.randint(0, N_BINS, 3 * WIN_TILE + 77),
+                               rs.randint(500, 520, 300)])
+    rec = np.sort((addr.astype(np.int64) << bits)
+                  | rs.randint(0, 1 << bits, addr.size))
+    if case == "sentinel_tail":
+        rec = np.concatenate([rec, np.full(8192 - rec.size, 0xFFFFFFFF)])
+    return rec
+
+
+@pytest.mark.parametrize("case", ["junk_97", "run_one_tile_aligned",
+                                  "run_many_tiles", "sentinel_tail",
+                                  "ragged"])
+@pytest.mark.parametrize("cols,weight", [(3, None), (4, 0.375)])
+def test_win_flush_tile_edges(cuda, case, cols, weight):
+    """win_flush.cu on sorted records, launched alone and through its
+    wrapper, against the plain version: density exact at weight 1.0
+    (the junk bin too), every channel of the real bins within 1e-5 of
+    the bin's density.  Palette entries are multiples of 2^-8 and the
+    weight 3/8, so every sum here is exact in float32 in any order: a
+    run of 20K records of random float32 colours carries ~2e-5 of
+    rounding in the plain version's own sequential sum."""
+    rec = _sorted_records(case)
+    pal = (np.random.RandomState(3).randint(0, 256, (256, cols))
+           / 256.0).astype(np.float32)
+    ref = flush.accumulate_windowed_reference(
+        thist.alloc(N_BINS, "cpu"), torch.as_tensor(rec),
+        torch.as_tensor(pal), N_BINS, 8, weight=weight).numpy()
+    hist = thist.alloc(N_BINS, cuda)
+    r = torch.as_tensor(rec, device=cuda)
+    p = flush._aligned_pal4(torch.as_tensor(pal, device=cuda))
+    before = flush.LAUNCHES["win_flush"]
+    flush._launch("win_flush", cuda, r.data_ptr(), r.numel(), p.data_ptr(),
+                  8, N_BINS, 1.0 if weight is None else weight,
+                  hist.data_ptr())
+    torch.cuda.synchronize()
+    assert flush.LAUNCHES["win_flush"] == before + 1
+    outs = [hist.cpu().numpy()]
+    if case != "ragged":    # the wrapper pads to a power of two
+        live = torch.as_tensor(rec[rec != 0xFFFFFFFF], device=cuda)
+        outs.append(flush.accumulate_windowed(
+            thist.alloc(N_BINS, cuda), live,
+            torch.as_tensor(pal, device=cuda), N_BINS, 8,
+            weight=weight).cpu().numpy())
+    for got in outs:
+        if weight is None:
+            np.testing.assert_array_equal(got[:, 3], ref[:, 3])
+        err = np.abs(got[:N_BINS] - ref[:N_BINS])
+        assert (err <= 1e-5 * np.maximum(ref[:N_BINS, 3:4], 1.0)).all()
+    assert ref[:N_BINS, 3].sum() > 0
 
 
 def test_flush_raises_when_build_fails(cuda, monkeypatch):
@@ -146,6 +246,7 @@ def test_flush_raises_when_build_fails(cuda, monkeypatch):
     monkeypatch.setattr(build, "load", broken)
     rec = torch.as_tensor(_records(9, 1000, 8, 0), device=cuda)
     pal = torch.rand((256, 3), device=cuda)
+    sorts = tiled_sort.LAUNCHES["bitonic_sort"]
     for fn, _plain, name in FLUSHES.values():
         hist = thist.alloc(N_BINS, cuda)
         before = flush.LAUNCHES[name]
@@ -157,10 +258,11 @@ def test_flush_raises_when_build_fails(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         flush.accumulate_windowed_rgb16(split, rec, pal, N_BINS, 8)
     assert float(split[0].abs().sum()) == 0.0
-    with pytest.raises(RuntimeError, match="nvcc failed"):
-        tiled_sort.bitonic_sort_u32_tiled(
-            torch.zeros(2 * tiled_sort.TILE, dtype=torch.int64,
-                        device=cuda))
+    for n in (2, 2 * tiled_sort.TILE):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            tiled_sort.bitonic_sort_u32_tiled(
+                torch.zeros(n, dtype=torch.int64, device=cuda))
+    assert tiled_sort.LAUNCHES["bitonic_sort"] == sorts
 
 
 @pytest.mark.parametrize("backend,name", [
@@ -173,8 +275,11 @@ def test_render_goes_through_kernel(cuda, backend, name):
     r = trender.Renderer(full_feature(), prof)
     assert r.backend == backend and r.device.type == "cuda"
     flush.LAUNCHES[name] = 0
+    tiled_sort.LAUNCHES["bitonic_sort"] = 0
     img, stats = r.render_frame(0.0, seed=1)
     assert flush.LAUNCHES[name] > 0
+    # every sorted flush sorts with the kernel, one launch a pass
+    assert (tiled_sort.LAUNCHES["bitonic_sort"] > 0) == (backend != "pallas")
     assert img.shape == (128, 128, 4) and img[..., :3].any()
     assert stats.plotted_samples > 0
 
