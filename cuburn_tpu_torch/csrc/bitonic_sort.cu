@@ -12,8 +12,8 @@
 // Two entries, driven pass by pass from ops/tiled_sort.py, which owns
 // the schedule (one launch a pass):
 //   bitonic_local_pass   one block per tile of keys: either every stage
-//                        1..log2(tile) (size == 0), or, for a later
-//                        stage `size`, its strides tile/2 down to 1.
+//                        1..15 (size == 0), or, for a later stage
+//                        `size`, its strides tile/2 down to 1.
 //                        The first pass of a sort reads the caller's
 //                        int64 keys and the last writes int64, so the
 //                        narrowing and widening cost no extra kernel.
@@ -45,15 +45,17 @@
 //     ones a window [j - 3, j].  Stages 1..9 are one group, a later
 //     stage's strides 2^14..1 are three.  Shared memory is swizzled so
 //     that neither layout has bank conflicts.
-//   - in a 2^15-key tile every group is unrolled at compile time as
-//     plain ascending min/max steps: a thread complements the keys that
-//     sort descending before a stage and after it (the direction is one
-//     per thread from stage 4 on, and known at compile time before).
+//   - every group is unrolled at compile time as plain ascending
+//     min/max steps: a thread complements the keys that sort descending
+//     before a stage and after it (the direction is one per thread from
+//     stage 4 on, and known at compile time before).
 // At 2^22 keys a sort is 18 launches: 8 local passes and 10 global.  A
-// tile smaller than 512 keys (N < 512) is padded in shared memory with
-// 0xFFFFFFFF, which sorts last and is never stored.  The TPU kernel's
-// 2^16-key tile (256 KB of VMEM) does not fit the 227 KB a block may
-// use; its lane/sublane rolls have no counterpart.
+// sort of fewer than 2^15 keys is the first pass over one tile, padded
+// in shared memory with 0xFFFFFFFF, which sorts last and is never
+// stored.  The keys are u32 values: the first pass keeps the low 32
+// bits of each int64 key (ops/tiled_sort.py states the contract).  The
+// TPU kernel's 2^16-key tile (256 KB of VMEM) does not fit the 227 KB a
+// block may use; its lane/sublane rolls have no counterpart.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -62,71 +64,19 @@ namespace {
 
 constexpr int kTileLog = 15;          // ops/tiled_sort.py TILE_LOG
 constexpr int kTile = 1 << kTileLog;
-constexpr int kMinTileLog = 9;        // one warp's 32 lanes x 16 keys
+constexpr int kLowStages = 9;         // one warp's 32 lanes x 16 keys
 constexpr int kKeysLog = 4;           // ops/tiled_sort.py FUSE
 constexpr int kKeys = 1 << kKeysLog;
-constexpr int kLaneLog = 5;
 constexpr int kMaxThreads = 1024;
 constexpr int kGlobalThreads = 256;
 constexpr uint32_t kPad = 0xFFFFFFFFu;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-
-__device__ __forceinline__ void compare_exchange(uint32_t& a, uint32_t& b,
-                                                 bool ascending) {
-  const uint32_t x = a;
-  a = ascending ? min(x, b) : max(x, b);
-  b = ascending ? max(x, b) : min(x, b);
-}
 
 // Index of key e of orbit o, the window at bits [wlo, wlo + kKeysLog).
 template <typename T>
 __device__ __forceinline__ T orbit_index(T o, int wlo, int e) {
   const T low = o & ((T(1) << wlo) - 1);
   return low | (T(e) << wlo) | ((o >> wlo) << (wlo + kKeysLog));
-}
-
-// -- steps with a direction per key (the first pass) -----------------------
-
-// Which of the thread's 16 keys sort descending in a substage of stage
-// `size` (< tile), as a mask over e: a key sorts descending where its
-// tile index & size is set, or everywhere when `bdesc` (size == tile
-// and the tile base has the bit).  The size bit is either outside the
-// window (one direction for the orbit, from li0) or one of its bits.
-__device__ __forceinline__ uint32_t descending_mask(uint32_t li0, int wlo,
-                                                    uint32_t size,
-                                                    bool bdesc) {
-  if (bdesc || (li0 & size)) return 0xFFFFu;
-  switch ((size >> wlo) & 15u) {
-    case 1: return 0xAAAAu;
-    case 2: return 0xCCCCu;
-    case 4: return 0xF0F0u;
-    case 8: return 0xFF00u;
-    default: return 0u;
-  }
-}
-
-// Stride 2^(wlo + B) inside the window: registers e and e | 2^B.
-template <int B>
-__device__ __forceinline__ void register_step(uint32_t (&v)[kKeys],
-                                              uint32_t desc) {
-#pragma unroll
-  for (int e = 0; e < kKeys; ++e) {
-    if (e & (1 << B)) continue;
-    compare_exchange(v[e], v[e | (1 << B)], !((desc >> e) & 1u));
-  }
-}
-
-// A stride on lane bit `lane`: the partner is lane ^ 2^lane, same
-// register.  The key with that bit clear keeps the smaller key where it
-// sorts ascending.
-__device__ __forceinline__ void shuffle_step(uint32_t (&v)[kKeys], int lane,
-                                             uint32_t desc) {
-  const uint32_t keep_min = ((threadIdx.x >> lane) & 1u) ? desc : ~desc;
-#pragma unroll
-  for (int e = 0; e < kKeys; ++e) {
-    const uint32_t p = __shfl_xor_sync(kFull, v[e], 1u << lane);
-    v[e] = ((keep_min >> e) & 1u) ? min(v[e], p) : max(v[e], p);
-  }
 }
 
 // -- ascending steps on complemented keys ------------------------------------
@@ -230,14 +180,13 @@ __device__ __forceinline__ uint32_t load_key(const void* in, bool in64,
 
 // The block's tile into shared memory, four keys a thread a step: every
 // load of a warp is one coalesced 512-byte (1 KB for int64) span, and all
-// are in flight before the first compare-exchange.  Keys past n (a tile
-// smaller than 512 keys) are 0xFFFFFFFF, which sorts last.
+// are in flight before the first compare-exchange.  Keys past n (a sort
+// of fewer than 2^15 keys) are 0xFFFFFFFF, which sorts last.
 template <bool kIn64>
 __device__ __forceinline__ void load_tile(uint32_t* s, const void* in,
                                           unsigned long long base,
-                                          uint32_t tile,
                                           unsigned long long n) {
-  for (uint32_t q = threadIdx.x; q < tile / 4; q += blockDim.x) {
+  for (uint32_t q = threadIdx.x; q < kTile / 4; q += blockDim.x) {
     const unsigned long long g = base + 4ULL * q;
     uint4 w;
     if (g + 4 > n) {
@@ -262,9 +211,8 @@ __device__ __forceinline__ void load_tile(uint32_t* s, const void* in,
 template <bool kOut64>
 __device__ __forceinline__ void store_tile(const uint32_t* s, void* out,
                                            unsigned long long base,
-                                           uint32_t tile,
                                            unsigned long long n) {
-  for (uint32_t q = threadIdx.x; q < tile / 4; q += blockDim.x) {
+  for (uint32_t q = threadIdx.x; q < kTile / 4; q += blockDim.x) {
     const unsigned long long g = base + 4ULL * q;
     const uint4 w = *reinterpret_cast<const uint4*>(s + swizzle(4 * q));
     if (g + 4 > n) {
@@ -325,51 +273,6 @@ __device__ __forceinline__ void store_orbit(uint32_t* s, uint32_t li0,
 
 // -- the kernels ------------------------------------------------------------
 
-// Stages 1..last of the tile in shared memory, in order, (stage s,
-// stride bit j), cut into groups: from the cursor, every substage whose
-// stride bit is in the thread's window of 4 register bits or among the 5
-// lane bits.  Strides 2^8..1 take the low layout; a larger stride 2^j
-// the window [j - 3, j] with the lanes on index bits 0..4.  Stages 1..9
-// are one group.  Every key has its own direction here.
-__device__ __forceinline__ void stages_by_cursor(uint32_t* s,
-                                                 unsigned long long base,
-                                                 int tile_log, int last) {
-  const uint32_t tile = 1u << tile_log;
-  int stage = 1, j = 0;
-  while (stage <= last) {
-    const int wlo = j >= kMinTileLog ? j - kKeysLog + 1 : 0;
-    const int lpos = wlo == 0 ? kKeysLog : 0;
-    int end_stage = stage, end_j = j;
-    while (end_stage <= last &&
-           ((end_j >= wlo && end_j < wlo + kKeysLog) ||
-            (end_j >= lpos && end_j < lpos + kLaneLog))) {
-      if (--end_j < 0) end_j = end_stage++;
-    }
-    for (uint32_t o = threadIdx.x; o < tile / kKeys; o += blockDim.x) {
-      const uint32_t li0 = orbit_index(o, wlo, 0);
-      uint32_t v[kKeys];
-      load_orbit(s, li0, wlo, v);
-      for (int cs = stage, cj = j; cs != end_stage || cj != end_j;) {
-        const uint32_t desc = descending_mask(
-            li0, wlo, cs < tile_log ? 1u << cs : 0u,
-            cs == tile_log && ((base >> tile_log) & 1ULL));
-        switch (cj - wlo) {
-          case 0: register_step<0>(v, desc); break;
-          case 1: register_step<1>(v, desc); break;
-          case 2: register_step<2>(v, desc); break;
-          case 3: register_step<3>(v, desc); break;
-          default: shuffle_step(v, cj - lpos, desc);
-        }
-        if (--cj < 0) cj = cs++;
-      }
-      store_orbit(s, li0, wlo, v);
-    }
-    __syncthreads();
-    stage = end_stage;
-    j = end_j;
-  }
-}
-
 // One group of a 2^15-key tile with the strides 2^J..2^Lo in layout W,
 // where the direction is one per thread: the tile index's bit `sbit`
 // (the stage's size bit, above every lane and window bit of the group),
@@ -400,45 +303,38 @@ __device__ __forceinline__ void tile_strides(uint32_t* s, int sbit,
   uniform_group<0, 6, 0>(s, sbit, bdesc);
 }
 
-// The first pass: stages 1..tile_log inside each tile.  In a 2^15-key
-// tile every group is unrolled at compile time: stages 1..9 in the low
-// layout, then each later stage's windows and low layout.  A smaller
-// tile (a sort of at most 2^14 keys) runs its stages by cursor.
-template <bool kIn64, bool kOut64>
+// The first pass: stages 1..15 inside each tile, every group unrolled
+// at compile time: stages 1..9 in the low layout, then each later
+// stage's windows and low layout.
+template <bool kOut64>
 __global__ void __launch_bounds__(kMaxThreads)
-first_pass_kernel(const void* in, void* out, unsigned long long n,
-                  int tile_log) {
+first_pass_kernel(const long long* in, void* out, unsigned long long n) {
   extern __shared__ uint4 smem[];
   uint32_t* s = reinterpret_cast<uint32_t*>(smem);
-  const uint32_t tile = 1u << tile_log;
   const unsigned long long base =
-      static_cast<unsigned long long>(blockIdx.x) << tile_log;
-  load_tile<kIn64>(s, in, base, tile, n);
-  if (tile_log == kTileLog) {
-    for (uint32_t o = threadIdx.x; o < kTile / kKeys; o += blockDim.x) {
-      const uint32_t li0 = orbit_index(o, 0, 0);
-      uint32_t v[kKeys];
-      load_orbit(s, li0, 0, v);
-      low_stages<kMinTileLog>(v, li0);
-      store_orbit(s, li0, 0, v);
-    }
-    __syncthreads();
-    uniform_group<6, 9, 6>(s, 10, false);
-    uniform_group<0, 5, 0>(s, 10, false);
-    uniform_group<7, 10, 7>(s, 11, false);
-    uniform_group<0, 6, 0>(s, 11, false);
-    uniform_group<8, 11, 8>(s, 12, false);
-    uniform_group<0, 7, 0>(s, 12, false);
-    uniform_group<9, 12, 9>(s, 13, false);
-    uniform_group<0, 8, 0>(s, 13, false);
-    uniform_group<10, 13, 10>(s, 14, false);
-    uniform_group<6, 9, 6>(s, 14, false);
-    uniform_group<0, 5, 0>(s, 14, false);
-    tile_strides(s, -1, (base >> kTileLog) & 1ULL);
-  } else {
-    stages_by_cursor(s, base, tile_log, tile_log);
+      static_cast<unsigned long long>(blockIdx.x) << kTileLog;
+  load_tile<true>(s, in, base, n);
+  for (uint32_t o = threadIdx.x; o < kTile / kKeys; o += blockDim.x) {
+    const uint32_t li0 = orbit_index(o, 0, 0);
+    uint32_t v[kKeys];
+    load_orbit(s, li0, 0, v);
+    low_stages<kLowStages>(v, li0);
+    store_orbit(s, li0, 0, v);
   }
-  store_tile<kOut64>(s, out, base, tile, n);
+  __syncthreads();
+  uniform_group<6, 9, 6>(s, 10, false);
+  uniform_group<0, 5, 0>(s, 10, false);
+  uniform_group<7, 10, 7>(s, 11, false);
+  uniform_group<0, 6, 0>(s, 11, false);
+  uniform_group<8, 11, 8>(s, 12, false);
+  uniform_group<0, 7, 0>(s, 12, false);
+  uniform_group<9, 12, 9>(s, 13, false);
+  uniform_group<0, 8, 0>(s, 13, false);
+  uniform_group<10, 13, 10>(s, 14, false);
+  uniform_group<6, 9, 6>(s, 14, false);
+  uniform_group<0, 5, 0>(s, 14, false);
+  tile_strides(s, -1, (base >> kTileLog) & 1ULL);
+  store_tile<kOut64>(s, out, base, n);
 }
 
 // A later local pass: stage `size` > tile, so the tile base alone sets
@@ -451,9 +347,9 @@ later_pass_kernel(const uint32_t* in, void* out, unsigned long long n,
   uint32_t* s = reinterpret_cast<uint32_t*>(smem);
   const unsigned long long base =
       static_cast<unsigned long long>(blockIdx.x) << kTileLog;
-  load_tile<false>(s, in, base, kTile, n);
+  load_tile<false>(s, in, base, n);
   tile_strides(s, -1, (base & size) != 0);
-  store_tile<kOut64>(s, out, base, kTile, n);
+  store_tile<kOut64>(s, out, base, n);
 }
 
 __device__ __forceinline__ void global_steps(uint32_t (&v)[kKeys], int hi,
@@ -503,23 +399,19 @@ cudaError_t allow_full_tile(Kernel kernel) {
       kTile * static_cast<int>(sizeof(uint32_t)));
 }
 
-template <bool kIn64, bool kOut64>
+template <bool kOut64>
 cudaError_t launch_first(const void* in, void* out, int64_t n,
                          cudaStream_t stream) {
   static const cudaError_t raised =
-      allow_full_tile(first_pass_kernel<kIn64, kOut64>);
+      allow_full_tile(first_pass_kernel<kOut64>);
   if (raised != cudaSuccess) return raised;
-  int log_n = 0;
-  while ((int64_t{1} << log_n) < n) ++log_n;
-  const int tile_log = log_n < kMinTileLog ? kMinTileLog
-                       : log_n > kTileLog  ? kTileLog
-                                           : log_n;
-  const int tile = 1 << tile_log;
-  const unsigned blocks = static_cast<unsigned>(n > tile ? n >> tile_log : 1);
-  const int threads = tile / kKeys < kMaxThreads ? tile / kKeys : kMaxThreads;
-  first_pass_kernel<kIn64, kOut64><<<blocks, threads,
-                                     tile * sizeof(uint32_t), stream>>>(
-      in, out, static_cast<unsigned long long>(n), tile_log);
+  // a sort of fewer than 2^15 keys is one padded tile
+  const unsigned blocks =
+      static_cast<unsigned>(n > kTile ? n >> kTileLog : 1);
+  first_pass_kernel<kOut64><<<blocks, kMaxThreads, kTile * sizeof(uint32_t),
+                              stream>>>(static_cast<const long long*>(in),
+                                        out,
+                                        static_cast<unsigned long long>(n));
   return cudaGetLastError();
 }
 
@@ -545,22 +437,19 @@ cudaError_t launch_later(const void* in, void* out, int64_t n,
 // the shared-memory limit).
 //
 // bitonic_local_pass: n keys, a power of two.  size == 0: the first pass
-// (n at most 2^15, one tile: the whole sort, or a multiple of 2^15);
-// `in` holds int64 (in64) or u32 keys.  size > 2^15: a later pass over
-// u32 keys.  `out` receives int64 (out64) or u32; in == out is allowed.
+// (n below 2^15, one padded tile: the whole sort; or a multiple of 2^15)
+// over the caller's int64 keys.  size > 2^15: a later pass over u32
+// keys.  `out` receives int64 (out64) or u32; in == out is allowed.
 extern "C" int bitonic_local_pass(const void* in, void* out, int64_t n,
-                                  uint64_t size, int in64, int out64,
+                                  uint64_t size, int out64,
                                   cudaStream_t stream) {
   cudaError_t err;
   if (size != 0) {
     err = out64 ? launch_later<true>(in, out, n, size, stream)
                 : launch_later<false>(in, out, n, size, stream);
-  } else if (in64) {
-    err = out64 ? launch_first<true, true>(in, out, n, stream)
-                : launch_first<true, false>(in, out, n, stream);
   } else {
-    err = out64 ? launch_first<false, true>(in, out, n, stream)
-                : launch_first<false, false>(in, out, n, stream);
+    err = out64 ? launch_first<true>(in, out, n, stream)
+                : launch_first<false>(in, out, n, stream);
   }
   return static_cast<int>(err);
 }

@@ -31,8 +31,10 @@ def pad_records(records: torch.Tensor) -> torch.Tensor:
 
 def sort_records(records: torch.Tensor) -> torch.Tensor:
     """Ascending sort of a flat array of packed records (any length),
-    padded by pad_records.  CUDA tensors launch the tiled bitonic sort
-    kernel (one launch a pass); CPU tensors take torch.sort."""
+    padded by pad_records.  The records are u32 values: CUDA tensors
+    launch the tiled bitonic sort kernel (one launch a pass), which keeps
+    each record's low 32 bits unchecked; CPU tensors take torch.sort, and
+    the CPU flushes refuse records outside u32 before they sort."""
     flat = pad_records(records)
     if flat.device.type == "cuda":
         return bitonic_sort_u32_tiled(flat)

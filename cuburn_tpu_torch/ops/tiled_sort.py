@@ -10,7 +10,8 @@ Pallas kernel `_tile_kernel`.  The ascending bitonic network over N =
         strides a pass
         local(size 2^s: strides TILE/2 .. 1) # one fused pass
 
-N <= TILE is one local pass.  A compare-exchange pair (i, i + k) sorts
+N <= TILE is one local pass (on the card one tile, padded with
+0xFFFFFFFF past N).  A compare-exchange pair (i, i + k) sorts
 descending when i & size is set, with i the GLOBAL index, so each
 tile-local pass leaves exactly the bitonic intermediate the next global
 stage expects.
@@ -21,6 +22,12 @@ memory; the TPU's 2^16 does not fit a Hopper block): the first pass
 reads the int64 keys and the last writes int64, the passes between work
 on u32.  On a CPU tensor it runs the same schedule as torch
 compare-exchange steps (`bitonic_sort_reference`).
+
+The keys are u32 values held in int64.  The CPU refuses any other
+value; on the card the check would cost a sync, so the first pass keeps
+each key's low 32 bits unchecked (a key below 0 or above 0xFFFFFFFF
+comes back truncated).  `record_bits` keeps every record of a render
+inside u32.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ LAUNCHES = {"bitonic_sort": 0}
 _P, _I64, _U64, _INT = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64,
                         ctypes.c_int)
 # argtypes of bitonic_sort.cu's C entries, before the stream
-_LOCAL_ARGS = (_P, _P, _I64, _U64, _INT, _INT)
+_LOCAL_ARGS = (_P, _P, _I64, _U64, _INT)
 _GLOBAL_ARGS = (_P, _I64, _U64, _INT, _INT)
 
 
@@ -102,6 +109,7 @@ def run_passes(x: torch.Tensor, passes, tile: int = TILE) -> torch.Tensor:
 
 
 def _check(keys):
+    """Shape and type; the u32 value range on the CPU only."""
     n = keys.shape[0] if keys.dim() == 1 else -1
     if keys.dtype != torch.int64 or n < 1 or n & (n - 1) \
             or not keys.is_contiguous():
@@ -109,12 +117,17 @@ def _check(keys):
             "keys must be a contiguous 1-D int64 tensor (u32 values) "
             "whose length is a power of two, got "
             f"{keys.dtype} {tuple(keys.shape)}")
+    if keys.device.type == "cpu" and (int(keys.min()) < 0
+                                      or int(keys.max()) > 0xFFFFFFFF):
+        raise ValueError("keys must be u32 values, got "
+                         f"[{int(keys.min())}, {int(keys.max())}]")
 
 
 def bitonic_sort_reference(keys: torch.Tensor,
                            tile: int = TILE) -> torch.Tensor:
     """The plain tiled sort: the same schedule as the kernel, in torch
     compare-exchange steps, on int64 keys holding u32 values."""
+    _check(keys)
     return run_passes(keys.reshape(-1), bitonic_schedule(keys.numel(),
                                                          tile), tile)
 
@@ -122,8 +135,9 @@ def bitonic_sort_reference(keys: torch.Tensor,
 def bitonic_sort_u32_tiled(keys: torch.Tensor) -> torch.Tensor:
     """Ascending sort of a (N,) int64 tensor of u32 values, N a power of
     two: the values torch.sort gives, as a new int64 tensor.  CPU
-    tensors take bitonic_sort_reference; CUDA tensors launch one kernel
-    per pass of the schedule, or raise."""
+    tensors take bitonic_sort_reference, which refuses keys outside u32;
+    CUDA tensors launch one kernel per pass of the schedule, or raise,
+    and keep each key's low 32 bits unchecked."""
     _check(keys)
     if keys.device.type == "cpu":
         return bitonic_sort_reference(keys)
@@ -150,6 +164,5 @@ def bitonic_sort_u32_tiled(keys: torch.Tensor) -> torch.Tensor:
             dst = out if last else x
             _build.launch(LAUNCHES, "bitonic_sort", "bitonic_sort",
                           "bitonic_local_pass", _LOCAL_ARGS, stream,
-                          src.data_ptr(), dst.data_ptr(), n, p[1], i == 0,
-                          last)
+                          src.data_ptr(), dst.data_ptr(), n, p[1], last)
     return out

@@ -1,0 +1,154 @@
+#!/usr/bin/env python3
+"""Time the tiled sort and the windowed flush of two checkouts of the
+port on one NVIDIA GPU, in turns.
+
+    python3 kernel_ab.py OLD_DIR NEW_DIR [--rounds R]
+
+OLD_DIR and NEW_DIR are checkouts of this repository (say the parent
+commit unpacked with `git archive`, and this tree).  Each checkout runs
+in a process of its own, since both packages are `cuburn_tpu_torch`, in
+the order OLD, NEW, NEW, OLD (R times).  Every process builds its own
+checkout's kernels and times its own wrappers with `medians` of the
+`chip_smoke.py` next to this script: the host clock around a
+synchronised call (`*_ms`) and CUDA events around the same call with the
+stream held back (`*_device_ms`), medians of 10 calls.  On the inputs of
+chip_smoke.py's phases 3 and 6 (2^22 records of the synthetic mix into
+the 8,633,536-bin 1080p-ss2 histogram, 8 colour bits; random u32 keys
+with sign-bit and sentinel values) it times:
+
+  sort_22, sort_23      bitonic_sort_u32_tiled of 2^22 and 2^23 keys,
+                        checked equal to torch.sort
+  torch_sort_22         torch.sort of the same 2^22 keys
+  win_flush_c3, _c4     the win_flush kernel alone on records sorted by
+                        torch.sort, 3-column palette at weight 1.0 and
+                        4-column at 0.37; density checked bit-exact
+                        against the plain version at weight 1.0
+  path_c3, _c4          accumulate_windowed: the checkout's own sort,
+                        then win_flush (the pallas_win kernel path)
+
+Prints one JSON line per process, then the card's nvidia-smi line and a
+last JSON line with, for each timing, the values of OLD's and NEW's
+processes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+# the 1080p-ss2 accumulator of chip_smoke.py's full_feature render:
+# 3896 x 2216 bins (a 28-pixel gutter)
+ACC_WIDTH, ACC_HEIGHT = 3896, 2216
+
+
+def _chip_smoke():
+    """chip_smoke.py beside this script, whichever checkout is timed."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def worker(tree: str) -> dict:
+    """Time one checkout's kernels in this process."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+    import cuburn_tpu_torch
+    from cuburn_tpu_torch.ops import flush, tiled_sort
+    from cuburn_tpu_torch.ops import histogram as thist
+    cs = _chip_smoke()
+    cs.check(torch.cuda.is_available(), "no CUDA device")
+    package = os.path.dirname(os.path.abspath(cuburn_tpu_torch.__file__))
+    cs.check(package == os.path.join(tree, "cuburn_tpu_torch"),
+             f"imported {package}, not the checkout {tree}")
+    dev = torch.device("cuda")
+    n_bins = ACC_WIDTH * ACC_HEIGHT
+
+    gen = torch.Generator().manual_seed(7)
+    keys = {}
+    for log_n in (22, 23):
+        k = torch.randint(0, 1 << 32, (1 << log_n,), generator=gen)
+        k[:1000] = cs.SENTINEL
+        k[1000:2000] = 1 << 31
+        keys[log_n] = k.to(dev)
+        cs.check(torch.equal(tiled_sort.bitonic_sort_u32_tiled(keys[log_n]),
+                             torch.sort(keys[log_n]).values),
+                 f"{tree}: the sort of 2^{log_n} keys differs from "
+                 "torch.sort")
+    fns = {"sort_22_ms": lambda: tiled_sort.bitonic_sort_u32_tiled(keys[22]),
+           "sort_23_ms": lambda: tiled_sort.bitonic_sort_u32_tiled(keys[23]),
+           "torch_sort_22_ms": lambda: torch.sort(keys[22])}
+
+    gen = torch.Generator().manual_seed(3)
+    for cols, bits, weight in cs.FLUSH_CONFIGS:
+        rec, pal = cs.flush_inputs(torch, 1 << 22, n_bins, ACC_WIDTH, cols,
+                                   bits, gen)
+        srt = torch.sort(rec).values
+        pal4 = flush._pal4(pal).contiguous().clone()
+        hist = thist.alloc(n_bins, dev)
+
+        def alone(srt=srt, pal4=pal4, hist=hist, bits=bits, weight=weight):
+            flush._launch("win_flush", dev, srt.data_ptr(), srt.numel(),
+                          pal4.data_ptr(), bits, n_bins, weight,
+                          hist.data_ptr())
+        alone()
+        ref = flush.accumulate_windowed_reference(
+            thist.alloc(n_bins, dev), rec, pal, n_bins, bits, weight)
+        torch.cuda.synchronize()
+        if cols == 3:
+            cs.check(torch.equal(hist[:, 3], ref[:, 3]),
+                     f"{tree}: win_flush density not bit-exact")
+        fns[f"win_flush_c{cols}_ms"] = alone
+        fns[f"path_c{cols}_ms"] = (
+            lambda hist=hist, rec=rec, pal=pal, bits=bits, weight=weight:
+            flush.accumulate_windowed(hist, rec, pal, n_bins, bits, weight))
+    return {"tree": tree, **cs.medians(torch, fns)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("old", help="checkout timed first and last")
+    ap.add_argument("new", nargs="?", help="checkout timed in between")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="repeats of the order OLD, NEW, NEW, OLD")
+    ap.add_argument("--worker", action="store_true",
+                    help="time OLD alone in this process (used internally)")
+    args = ap.parse_args(argv)
+    if args.worker:
+        print(json.dumps(worker(args.old)), flush=True)
+        return 0
+    if args.new is None:
+        ap.error("give two checkouts")
+    old, new = os.path.abspath(args.old), os.path.abspath(args.new)
+    runs = {old: [], new: []}
+    for _ in range(args.rounds):
+        for tree in (old, new, new, old):
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--worker",
+                 tree], capture_output=True, text=True)
+            if proc.returncode != 0:
+                sys.stderr.write(proc.stderr)
+                return proc.returncode
+            line = proc.stdout.strip().splitlines()[-1]
+            print(line, flush=True)
+            runs[tree].append(json.loads(line))
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    keys = [k for k in runs[old][0] if k != "tree"]
+    print(json.dumps({k: {"old": [r[k] for r in runs[old]],
+                          "new": [r[k] for r in runs[new]]}
+                      for k in keys}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -537,6 +537,18 @@ def test_tiled_sort_argument_checks():
         tiled_sort.bitonic_schedule(1000, 64)
 
 
+@pytest.mark.parametrize("bad", [-1, 1 << 32])
+@pytest.mark.parametrize("fn", ["bitonic_sort_reference",
+                                "bitonic_sort_u32_tiled"])
+def test_tiled_sort_refuses_keys_outside_u32(fn, bad):
+    """The sort's keys are u32 values: on the CPU the plain version
+    refuses any other int64 value (the card narrows them unchecked)."""
+    keys = torch.arange(1024, dtype=torch.int64)
+    keys[517] = bad
+    with pytest.raises(ValueError, match="u32"):
+        getattr(tiled_sort, fn)(keys)
+
+
 # -- whole renders ---------------------------------------------------------
 
 def _inject_jax_state(monkeypatch):

@@ -2,9 +2,9 @@
 that the port imports nothing of it.
 
 Contracts:
-- no module of `cuburn_tpu_torch/`, nor `chip_smoke.py`, imports
-  `cuburn_tpu` or `jax` (an AST scan), and every port module imports
-  with both blocked;
+- no module of `cuburn_tpu_torch/`, nor `chip_smoke.py` or
+  `kernel_ab.py`, imports `cuburn_tpu` or `jax` (an AST scan), and every
+  port module imports with both blocked;
 - the port's copies of the genome layer, gallery, profiles, command-line
   parser and output sinks give the JAX package's results exactly:
   `eval_at(t)` leaves and `structure_key()` of every gallery genome and
@@ -47,7 +47,8 @@ FORBIDDEN = {"cuburn_tpu", "jax", "jaxlib"}
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "kernel_ab.py"]
 
 
 def _port_modules():
@@ -80,7 +81,7 @@ def test_every_port_module_imports_with_jax_blocked():
     script = (
         "import importlib, sys\n"
         "sys.modules['cuburn_tpu'] = sys.modules['jax'] = None\n"
-        f"for m in {mods!r} + ['chip_smoke']:\n"
+        f"for m in {mods!r} + ['chip_smoke', 'kernel_ab']:\n"
         "    importlib.import_module(m)\n"
         "print('imported', len(sys.modules))\n")
     out = subprocess.run(
