@@ -28,25 +28,29 @@ CUDA toolkit.  Phases, each printed on its own line:
               of that render (the first holds the fuse steps) against
               the synthetic mix of phases 3 and 6: junk share, touched
               bins, hot-bin shares, the unsorted flush (scatter_flush.cu)
-              timed on each; and on the first and the real flush,
-              win_flush checked as in phase 3 and timed with its kernel
-              path, alone, and the sort, beside the merged and split
-              flushes' kernel paths
+              timed on each, with the atomics it made; and on the
+              first and the real flush, win_flush and the unsorted and
+              merged flushes checked as in phases 3 and 6, win_flush
+              and the merged flush timed with their kernel paths and
+              alone, and the sort, beside the split flush's kernel path
   5. parity   sierpinski and full_feature at 128x128 on cuda against
               the same render on the CPU (the flush's plain version):
               TV distance of the normalised density histograms under 3x
               the CPU path's two-seed floor
   6. kernel   the other kernels at the same shapes, each against its
               plain version: the unsorted and merged flushes
-              (scatter_flush.cu) as in phase 3; the split flush
+              (scatter_flush.cu) as in phase 3, the merged kernel also
+              alone on sorted records, the unsorted one with the atomics
+              it made; the split flush
               (win_flush_rgb16.cu) from a nonzero split histogram,
               density bit-exact and rgb within one bf16 ulp; the tiled
               bitonic sort (bitonic_sort.cu) equal to torch.sort at 2^22
               and 2^23 keys, with each pass's device time; times and
               bounds as in phase 3
   7. render   full_feature at 1080p through the backends pallas,
-              pallas_merged and pallas_rgb16 at quality Q: launches > 0,
-              histogram mass == plotted samples, a non-black frame
+              pallas_merged and pallas_rgb16 at quality Q: one launch a
+              flush (two for pallas_rgb16), histogram mass == plotted
+              samples, a non-black frame
   8. parity   full_feature at 128x128, CUDA against CPU, for every
               backend besides pallas_win, under 3x the two-seed floor
 
@@ -81,6 +85,16 @@ KERNELS = {
 # the backend whose render drives each flush kernel
 RENDER_BACKENDS = {"packed_flush": "pallas", "merged_flush": "pallas_merged",
                    "win_flush_rgb16": "pallas_rgb16"}
+# CUDA kernel launches of each flush kernel in one flush (the sort's
+# passes count under bitonic_sort)
+LAUNCHES_PER_FLUSH = {"win_flush": 1, "packed_flush": 1, "merged_flush": 1,
+                      "win_flush_rgb16": 2}
+# wrapper and plain version of each flush of the logical histogram
+LOGICAL_FLUSHES = {
+    "win_flush": ("accumulate_windowed", "accumulate_windowed_reference"),
+    "packed_flush": ("accumulate_packed", "accumulate_packed_reference"),
+    "merged_flush": ("accumulate_merged", "accumulate_merged_reference"),
+}
 # H100 SXM published peaks (at a 700 W power limit): device memory and
 # float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -187,42 +201,57 @@ def library_flush(torch, hist, rec, pal4, n_bins, bits, weight):
                            alpha=weight)
 
 
+def check_flush(torch, flush, thist, name, rec, pal, n_bins, bits, weight,
+                what):
+    """One flush through kernel `name`'s wrapper against its plain
+    version on the card: every channel of the real bins within 1e-5 of
+    the bin's density, and at weight 1.0 with a 3-column palette the
+    density bit-exact, the junk bin's too.  Returns the max abs error."""
+    dev = torch.device("cuda")
+    kernel, plain = (getattr(flush, f) for f in LOGICAL_FLUSHES[name])
+    got = kernel(thist.alloc(n_bins, dev), rec, pal, n_bins, bits, weight)
+    ref = plain(thist.alloc(n_bins, dev), rec, pal, n_bins, bits, weight)
+    torch.cuda.synchronize()
+    if pal.shape[1] == 3 and weight == 1.0:
+        check(torch.equal(got[:, 3], ref[:, 3]),
+              f"{name} on {what}: density not bit-exact at weight 1.0")
+    err = (got[:n_bins] - ref[:n_bins]).abs()
+    check(bool((err <= 1e-5 * ref[:n_bins, 3:].clamp(min=1.0)).all()),
+          f"{name} on {what} disagrees: max err {float(err.max())} "
+          f"({pal.shape[1]}-column palette, weight {weight})")
+    check(float(ref[:n_bins, 3].sum()) > 0, f"{name} on {what} added no mass")
+    return float(err.max())
+
+
+def packed_atomics(torch, flush, rec, pal4, n_bins, bits):
+    """The atomics packed_flush makes for these records, from the debug
+    entry's device counter."""
+    dev = torch.device("cuda")
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    rec = flush._aligned(rec.reshape(-1))
+    flush._launch("packed_flush_counted", dev, rec.data_ptr(), rec.numel(),
+                  pal4.data_ptr(), bits, n_bins, 1.0,
+                  torch.zeros((n_bins + 1, 4), device=dev).data_ptr(),
+                  count.data_ptr())
+    return int(count)
+
+
 def phase_flush(torch, flush, sort, thist, name, n_bins, acc_width,
                 phase_no):
     """A flush kernel of the logical histogram against its plain version
     on the card, at the main path's shapes."""
-    kernel, plain = {
-        "win_flush": (flush.accumulate_windowed,
-                      flush.accumulate_windowed_reference),
-        "packed_flush": (flush.accumulate_packed,
-                         flush.accumulate_packed_reference),
-        "merged_flush": (flush.accumulate_merged,
-                         flush.accumulate_merged_reference),
-    }[name]
+    kernel, plain = (getattr(flush, f) for f in LOGICAL_FLUSHES[name])
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(3)
     n = 1 << 22
-    sync = torch.cuda.synchronize
     results, max_err = {}, 0.0
     for cols, bits, weight in FLUSH_CONFIGS:
         rec, pal = flush_inputs(torch, n, n_bins, acc_width, cols, bits,
                                 gen)
-        got = kernel(thist.alloc(n_bins, dev), rec, pal, n_bins, bits,
-                     weight)
-        ref = plain(thist.alloc(n_bins, dev), rec, pal, n_bins, bits,
-                    weight)
-        sync()
-        got, ref = got[:n_bins], ref[:n_bins]
-        err = (got - ref).abs()
-        tol = 1e-5 * torch.clamp(ref[:, 3:], min=1.0)
-        check(bool((err <= tol).all()),
-              f"{name} disagrees: max err {float(err.max())} "
-              f"({cols}-column palette, weight {weight})")
-        if cols == 3:
-            check(torch.equal(got[:, 3], ref[:, 3]),
-                  f"{name}: density not bit-exact at weight 1.0")
-        check(float(ref[:, 3].sum()) > 0, f"{name} added no mass")
-        max_err = max(max_err, float(err.max()))
+        err = check_flush(torch, flush, thist, name, rec, pal, n_bins,
+                          bits, weight, "the synthetic mix")
+        max_err = max(max_err, err)
+        extra = {}
 
         hk, hr, hl = (thist.alloc(n_bins, dev) for _ in range(3))
         pal4 = flush._pal4(pal).contiguous()
@@ -244,14 +273,17 @@ def phase_flush(torch, flush, sort, thist, name, n_bins, acc_width,
             live = rec[(rec >> bits) != n_bins]
             fns["no_junk_ms"] = lambda: kernel(hk, live, pal, n_bins,
                                                bits, weight)
+            extra["atomics"] = packed_atomics(torch, flush, rec, pal4,
+                                              n_bins, bits)
         elif name == "merged_flush":
-            uq, cn = flush.merge_records(rec, n_bins, bits)
+            # the kernel alone on sorted records: it merges the runs
+            # itself, so nothing else stands between the sort and it
+            srt = sort.sort_records(rec)
             fns["kernel_only_ms"] = lambda: flush._launch(
-                "merged_flush", dev, uq.data_ptr(), cn.data_ptr(),
-                uq.numel(), pal4.data_ptr(), bits, n_bins, weight,
-                hk.data_ptr())
-            fns["sort_merge_ms"] = lambda: flush.merge_records(
-                rec, n_bins, bits)
+                "merged_flush", dev, srt.data_ptr(), srt.numel(),
+                pal4.data_ptr(), bits, n_bins, weight, hk.data_ptr())
+            fns["sort_ms"] = lambda: sort.sort_records(rec)
+            extra["unique_records"] = int(torch.unique(rec).numel())
         med = medians(torch, fns)
         touched = touched_bins(torch, rec, n_bins, bits)
         # records read once, each touched bin's 16 bytes read and
@@ -261,8 +293,7 @@ def phase_flush(torch, flush, sort, thist, name, n_bins, acc_width,
         results[cols] = med
         phase(phase_no, "kernel", kernel=name, palette_cols=cols,
               weight=weight, records=n, bins=n_bins, touched_bins=touched,
-              max_abs_err=float(err.max()), density_exact=cols == 3,
-              **med)
+              max_abs_err=err, density_exact=cols == 3, **extra, **med)
     return results[3], max_err
 
 
@@ -502,10 +533,11 @@ def phase_flush_mix(torch, flush, sort, thist, flushes, n_bins, acc_width,
                     bits):
     """The records of real 1080p flushes against the synthetic mix of
     the kernel phases (phase 4): how they spread; the unsorted flush
-    timed on each, with and without the junk bin's records; and, on the
-    real records, the main path's flush checked against its plain
-    version and timed: the kernel path, win_flush alone and the sort;
-    and the merged and split flushes' kernel paths.
+    timed on each, with and without the junk bin's records, and the
+    atomics it made; and, on the real records, win_flush and the
+    unsorted and merged flushes checked against their plain versions,
+    win_flush and the merged flush timed as kernel path and alone,
+    beside the sort and the split flush's kernel path.
     The first flush of a render holds the fuse steps, whose points all
     go to the junk bin; the second is what every later flush looks
     like."""
@@ -516,7 +548,8 @@ def phase_flush_mix(torch, flush, sort, thist, flushes, n_bins, acc_width,
                               bits, gen)
     hist = thist.alloc(n_bins, dev)
     split = flush.alloc_split(n_bins, dev)
-    fns, win_err = {}, 0.0
+    pal4 = flush._pal4(pal).contiguous()
+    fns, errs, atomics = {}, dict.fromkeys(LOGICAL_FLUSHES, 0.0), {}
     for name, r in (("first", flushes[0]), ("real", rec),
                     ("synthetic", synth)):
         live = r[(r >> bits) < n_bins]
@@ -524,53 +557,53 @@ def phase_flush_mix(torch, flush, sort, thist, flushes, n_bins, acc_width,
             hist, r, pal, n_bins, bits))
         fns[f"{name}_no_junk_ms"] = (lambda r=live: flush.accumulate_packed(
             hist, r, pal, n_bins, bits))
+        atomics[name] = packed_atomics(torch, flush, r, pal4, n_bins, bits)
         if name == "synthetic":
             continue
         for cols, _bits, weight in FLUSH_CONFIGS:
             p = torch.rand((1 << bits, cols), generator=gen).to(dev)
             if cols == 4:
                 p[:, :3] *= p[:, 3:]        # rgb * opacity, opacity
-            got = flush.accumulate_windowed(thist.alloc(n_bins, dev), r, p,
-                                            n_bins, bits, weight)
-            ref = flush.accumulate_windowed_reference(
-                thist.alloc(n_bins, dev), r, p, n_bins, bits, weight)
-            torch.cuda.synchronize()
-            if cols == 3:
-                check(torch.equal(got[:, 3], ref[:, 3]),
-                      f"win_flush on the {name} flush: density not "
-                      "bit-exact at weight 1.0")
-            err = (got[:n_bins] - ref[:n_bins]).abs()
-            check(bool((err <= 1e-5 * ref[:n_bins, 3:].clamp(min=1.0))
-                       .all()),
-                  f"win_flush on the {name} flush: max err "
-                  f"{float(err.max())} ({cols}-column palette)")
-            win_err = max(win_err, float(err.max()))
+            for kernel in LOGICAL_FLUSHES:
+                errs[kernel] = max(errs[kernel], check_flush(
+                    torch, flush, thist, kernel, r, p, n_bins, bits,
+                    weight, f"the {name} flush"))
         srt = sort.sort_records(r)
-        pal4 = flush._pal4(pal).contiguous()
         fns[f"{name}_win_ms"] = (lambda r=r: flush.accumulate_windowed(
             hist, r, pal, n_bins, bits))
         fns[f"{name}_win_kernel_only_ms"] = (
-            lambda srt=srt, pal4=pal4: flush._launch(
+            lambda srt=srt: flush._launch(
                 "win_flush", dev, srt.data_ptr(), srt.numel(),
                 pal4.data_ptr(), bits, n_bins, 1.0, hist.data_ptr()))
         fns[f"{name}_sort_ms"] = lambda r=r: sort.sort_records(r)
-        # the other two sorted flushes' kernel paths on the same records
+        # the other two sorted flushes on the same records: the merged
+        # flush's kernel path and its kernel alone, the split flush's path
         fns[f"{name}_merged_ms"] = (lambda r=r: flush.accumulate_merged(
             hist, r, pal, n_bins, bits))
+        fns[f"{name}_merged_kernel_only_ms"] = (
+            lambda srt=srt: flush._launch(
+                "merged_flush", dev, srt.data_ptr(), srt.numel(),
+                pal4.data_ptr(), bits, n_bins, 1.0, hist.data_ptr()))
         fns[f"{name}_rgb16_ms"] = (
             lambda r=r: flush.accumulate_windowed_rgb16(split, r, pal,
                                                         n_bins, bits))
     med = medians(torch, fns)
+    mixes = {name: flush_mix(torch, r, n_bins, bits)
+             for name, r in (("first", flushes[0]), ("real", rec),
+                             ("synthetic", synth))}
+    # a logical flush's bound on each mix: the records read once, each
+    # touched bin (and the junk bin) read and written once, the palette
+    bounds = {name: bound(m["records"] * 8 + (m["touched_bins"] + 1) * 32
+                          + pal4.numel() * 4)[0]
+              for name, m in mixes.items()}
     phase(4, "flush_mix", kernels=["packed_flush", "win_flush",
                                    "bitonic_sort", "merged_flush",
                                    "win_flush_rgb16"], color_bits=bits,
-          first=flush_mix(torch, flushes[0], n_bins, bits),
-          real=flush_mix(torch, rec, n_bins, bits),
-          synthetic=flush_mix(torch, synth, n_bins, bits),
-          win_flush_max_abs_err=win_err, **med)
+          **mixes, bound_ms=bounds, packed_flush_atomics=atomics,
+          **{f"{k}_max_abs_err": v for k, v in errs.items()}, **med)
 
 
-def phase_render_backend(torch, flush, Renderer, genome, get_profile,
+def phase_render_backend(torch, flush, tit, Renderer, genome, get_profile,
                          name, quality):
     """full_feature at 1080p through one more kernel's backend (phase
     7): accumulate + finalize_frame, the two halves of render_frame, so
@@ -579,11 +612,21 @@ def phase_render_backend(torch, flush, Renderer, genome, get_profile,
     r = Renderer(genome, get_profile("1080p", quality=quality,
                                      hist_backend=backend))
     check(r.backend == backend, f"backend {r.backend}, expected {backend}")
+    wrapper, flushes = tit.PACKED_FLUSHES[backend], 0
+
+    def counted(*args):
+        nonlocal flushes
+        flushes += 1
+        return wrapper(*args)
+    tit.PACKED_FLUSHES[backend] = counted
     flush.LAUNCHES[name] = 0
     hist, stats = r.accumulate(0.0, seed=1)
     img = r.finalize_frame(hist, 0.0, stats)
     launches = flush.LAUNCHES[name]
-    check(launches > 0, f"the {backend} render launched no {name}")
+    tit.PACKED_FLUSHES[backend] = wrapper
+    check(launches == flushes * LAUNCHES_PER_FLUSH[name] > 0,
+          f"the {backend} render launched {name} {launches} times in "
+          f"{flushes} flushes, expected {LAUNCHES_PER_FLUSH[name]} a flush")
     check(bool(torch.isfinite(hist).all()),
           f"{backend}: non-finite histogram")
     mass = float(hist[:-1, 3].double().sum())
@@ -595,7 +638,8 @@ def phase_render_backend(torch, flush, Renderer, genome, get_profile,
     cam = r.cam
     phase(7, "render", genome="full_feature", profile="1080p",
           quality=quality, bins=cam.n_bins, backend=backend, kernel=name,
-          launches=launches, plotted_samples=stats.plotted_samples,
+          launches=launches, flushes=flushes,
+          plotted_samples=stats.plotted_samples,
           total_iters=stats.total_iters, mass=mass,
           samples_per_s=stats.samples_per_sec,
           iterate_s=stats.iterate_s, filter_s=stats.filter_s,
@@ -694,7 +738,7 @@ def main(argv=None) -> int:
     del main_r
     for name in RENDER_BACKENDS:
         launches[name] = phase_render_backend(
-            torch, flush, Renderer, full_feature(), get_profile, name,
+            torch, flush, tit, Renderer, full_feature(), get_profile, name,
             args.quality)
     for backend in ("pallas", "pallas_merged", "pallas_rgb16", "scatter",
                     "scatter_sorted", "sortcum"):

@@ -12,6 +12,14 @@ raises.
   pallas_merged  accumulate_merged          scatter_flush.cu (merged)
   pallas_rgb16   accumulate_windowed_rgb16  win_flush_rgb16.cu
 
+On a CUDA tensor `accumulate_packed` is one launch over the unsorted
+records (the junk bin's rows summed per block, equal addresses per
+warp, before the atomic), and `accumulate_merged` is `sort_records`
+and one launch: the kernel finds the runs of the sorted records and
+their counts itself.  `merge_records` (the port of the JAX package's
+sort + `merge_sorted_records`) is the plain version's path and the
+CPU's only.
+
 All but the last update the logical (n_bins + 1, 4) float32 histogram
 IN PLACE, like the JAX package's in-place mode; `pallas_rgb16` updates
 the split layout (density (n_bins + 1,) float32, rgb (n_bins + 1, 3)
@@ -32,7 +40,8 @@ from cuburn_tpu_torch.ops.sort import (SENTINEL, merge_sorted_records,
 
 # kernel name -> CUDA kernel launches through its wrapper: one per
 # flush for all but win_flush_rgb16, which launches two (its runs and
-# carry passes)
+# carry passes); the sort in front of a sorted flush counts in
+# tiled_sort.LAUNCHES
 LAUNCHES = {"win_flush": 0, "packed_flush": 0, "merged_flush": 0,
             "win_flush_rgb16": 0}
 
@@ -44,8 +53,12 @@ _ENTRIES = {
                   (_P, _I64, _P, ctypes.c_int, _I64, _F, _P)),
     "packed_flush": ("scatter_flush", "packed_flush",
                      (_P, _I64, _P, ctypes.c_int, _I64, _F, _P)),
+    # debug: packed_flush that also counts the atomics it makes
+    "packed_flush_counted": ("scatter_flush", "packed_flush",
+                             (_P, _I64, _P, ctypes.c_int, _I64, _F, _P,
+                              _P)),
     "merged_flush": ("scatter_flush", "merged_flush",
-                     (_P, _P, _I64, _P, ctypes.c_int, _I64, _F, _P)),
+                     (_P, _I64, _P, ctypes.c_int, _I64, _F, _P)),
     "win_flush_rgb16_runs": ("win_flush_rgb16", "win_flush_rgb16",
                              (_P, _I64, _P, ctypes.c_int, _I64, _F, _P, _P,
                               _P)),
@@ -197,7 +210,7 @@ def accumulate_windowed(hist, packed_records, palette_hi, n_bins: int,
     return hist
 
 
-# -- pallas: unsorted records, one atomic add per record -------------------
+# -- pallas: unsorted records, atomics aggregated per warp and block -------
 
 def accumulate_packed_reference(hist, packed_records, palette_hi,
                                 n_bins: int, color_bits: int,
@@ -214,15 +227,17 @@ def accumulate_packed(hist, packed_records, palette_hi, n_bins: int,
     """Flush unsorted packed records into the logical histogram IN
     PLACE: each record adds weight * pal4[q] into bin addr, in no
     particular order (`accumulate_packed_pallas`, backend `pallas`).
-    CUDA tensors launch scatter_flush.cu's packed entry (one float4
-    atomicAdd per record); density is exact at weight 1.0 with a
-    3-column palette, since its sums are integer counts."""
+    CUDA tensors launch scatter_flush.cu's packed entry once: a block
+    sums its junk-bin rows into one float4 atomicAdd, a warp the rows
+    of lanes with equal addresses, every other record adds its own.
+    Density is exact at weight 1.0 with a 3-column palette, since its
+    sums are integer counts; rgb agrees within float32 reassociation."""
     _check(hist, packed_records, palette_hi, n_bins, color_bits)
     if _device_of(hist) == "cpu":
         return accumulate_packed_reference(
             hist, packed_records, palette_hi, n_bins, color_bits, weight)
     pal4 = _aligned_pal4(palette_hi)
-    recs = packed_records.reshape(-1).contiguous()
+    recs = _aligned(packed_records.reshape(-1))
     if recs.numel():        # the sorted flushes always get >= 1 record
         _launch("packed_flush", hist.device, recs.data_ptr(),
                 recs.numel(), pal4.data_ptr(), color_bits, n_bins,
@@ -238,7 +253,8 @@ def merge_records(packed_records, n_bins: int, color_bits: int,
     merge_sorted_records: (unique records, int32 counts), uniques
     first, padded with the junk record at count 0.  The power-of-two
     padding's sentinels merge into one record, whose count is zeroed
-    here."""
+    here.  The plain merged flush and the CPU use it; on the card
+    scatter_flush.cu's merged entry merges in its own body."""
     uniq, counts = merge_sorted_records(sort(packed_records),
                                         n_bins << color_bits)
     return uniq, torch.where(uniq == SENTINEL, 0, counts)
@@ -262,19 +278,20 @@ def accumulate_merged(hist, packed_records, palette_hi, n_bins: int,
     """Sort + run-merge + count-weighted flush IN PLACE
     (`accumulate_merged_pallas`, backend `pallas_merged`): duplicate
     records collapse into one update of count * pal4[q].  CUDA tensors
-    sort with sort_records, merge with torch ops and launch
-    scatter_flush.cu's merged entry (one float4 atomicAdd per unique
-    record, count 0 skipped)."""
+    sort with sort_records and launch scatter_flush.cu's merged entry
+    once: it finds the runs of the sorted records and their counts in
+    its own body and makes one float4 atomicAdd per distinct record,
+    none for the sort's padding.  No PyTorch op runs between the sort
+    and the launch."""
     _check(hist, packed_records, palette_hi, n_bins, color_bits)
     if _device_of(hist) == "cpu":
         return accumulate_merged_reference(
             hist, packed_records, palette_hi, n_bins, color_bits, weight)
     pal4 = _aligned_pal4(palette_hi)
-    uniq, counts = merge_records(packed_records, n_bins, color_bits)
-    uniq, counts = uniq.contiguous(), counts.contiguous()
-    _launch("merged_flush", hist.device, uniq.data_ptr(),
-            counts.data_ptr(), uniq.numel(), pal4.data_ptr(), color_bits,
-            n_bins, _weight(weight), hist.data_ptr())
+    recs = _aligned(sort_records(packed_records))
+    _launch("merged_flush", hist.device, recs.data_ptr(), recs.numel(),
+            pal4.data_ptr(), color_bits, n_bins, _weight(weight),
+            hist.data_ptr())
     return hist
 
 

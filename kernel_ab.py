@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the tiled sort and the windowed flush of two checkouts of the
-port on one NVIDIA GPU, in turns.
+"""Time the tiled sort and the logical-histogram flushes of two
+checkouts of the port on one NVIDIA GPU, in turns.
 
     python3 kernel_ab.py OLD_DIR NEW_DIR [--rounds R]
 
@@ -25,6 +25,22 @@ with sign-bit and sentinel values) it times:
                         against the plain version at weight 1.0
   path_c3, _c4          accumulate_windowed: the checkout's own sort,
                         then win_flush (the pallas_win kernel path)
+  packed_c3, _c4        accumulate_packed (backend pallas, no sort)
+  merged_c3, _c4        accumulate_merged (the pallas_merged kernel
+                        path: the sort, then whatever the checkout runs
+                        up to and including its merged_flush kernel)
+  merged_kernel_c3,     the merged_flush kernel alone: on sorted records
+  _c4                   where the checkout's kernel merges the runs
+                        itself, else on the unique records and counts
+                        its torch merge made beforehand
+
+and, on the records of the first two flushes of the checkout's own
+full_feature 1080p render (the first holds the fuse steps, 97% junk; the
+second is what every later flush looks like), 3-column palette at
+weight 1.0: packed_first, packed_real, merged_first, merged_real,
+merged_kernel_first, merged_kernel_real.  Every packed and merged flush
+is checked against its plain version first: density bit-exact at weight
+1.0, channels within 1e-5 of the bin's density.
 
 Prints one JSON line per process, then the card's nvidia-smi line and a
 last JSON line with, for each timing, the values of OLD's and NEW's
@@ -53,6 +69,76 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def render_flushes(torch):
+    """The records of the first two flushes of the imported checkout's
+    full_feature 1080p render (two flushes' worth of quality)."""
+    from cuburn_tpu_torch.models import full_feature
+    from cuburn_tpu_torch.ops import iterate as tit
+    from cuburn_tpu_torch.profile import get_profile
+    from cuburn_tpu_torch.render import Renderer
+    r = Renderer(full_feature(), get_profile("1080p", quality=32))
+    flushes, win = [], tit.PACKED_FLUSHES["pallas_win"]
+
+    def keep(hist, recs, *args):
+        flushes.append(recs.reshape(-1).clone())
+        return win(hist, recs, *args)
+    tit.PACKED_FLUSHES["pallas_win"] = keep
+    try:
+        r.accumulate(0.0, seed=2)
+    finally:
+        tit.PACKED_FLUSHES["pallas_win"] = win
+    bits = tit.record_bits(r.key, r.cam, "pallas_win", r.op_bits)[1]
+    return flushes[:2], r.cam.n_bins, bits
+
+
+def merged_kernel_alone(torch, flush, rec, pal4, hist, n_bins, bits, weight):
+    """A call of the checkout's merged_flush kernel alone on `rec`."""
+    dev = hist.device
+    if len(flush._ENTRIES["merged_flush"][2]) == 8:
+        # the kernel takes unique records and counts, merged beforehand
+        uniq, counts = flush.merge_records(rec, n_bins, bits)
+        return lambda: flush._launch(
+            "merged_flush", dev, uniq.data_ptr(), counts.data_ptr(),
+            uniq.numel(), pal4.data_ptr(), bits, n_bins, weight,
+            hist.data_ptr())
+    srt = flush.sort_records_reference(rec)
+    return lambda: flush._launch(
+        "merged_flush", dev, srt.data_ptr(), srt.numel(), pal4.data_ptr(),
+        bits, n_bins, weight, hist.data_ptr())
+
+
+def scatter_timings(torch, cs, flush, thist, tree, tag, rec, pal, n_bins,
+                    bits, weight):
+    """{name: call} for the packed and merged flushes on one set of
+    records, each checked against its plain version first."""
+    dev = rec.device
+    pal4 = flush._pal4(pal).contiguous().clone()
+    hist = thist.alloc(n_bins, dev)
+    fns = {}
+    for name, kernel, plain in (
+            ("packed", flush.accumulate_packed,
+             flush.accumulate_packed_reference),
+            ("merged", flush.accumulate_merged,
+             flush.accumulate_merged_reference)):
+        got = kernel(thist.alloc(n_bins, dev), rec, pal, n_bins, bits,
+                     weight)
+        ref = plain(thist.alloc(n_bins, dev), rec, pal, n_bins, bits,
+                    weight)
+        torch.cuda.synchronize()
+        if pal.shape[1] == 3 and weight == 1.0:
+            cs.check(torch.equal(got[:, 3], ref[:, 3]),
+                     f"{tree}: {name} density not bit-exact ({tag})")
+        err = (got[:n_bins] - ref[:n_bins]).abs()
+        cs.check(bool((err <= 1e-5 * ref[:n_bins, 3:].clamp(min=1.0)).all()),
+                 f"{tree}: {name} disagrees ({tag}): {float(err.max())}")
+        fns[f"{name}_{tag}_ms"] = (
+            lambda kernel=kernel: kernel(hist, rec, pal, n_bins, bits,
+                                         weight))
+    fns[f"merged_kernel_{tag}_ms"] = merged_kernel_alone(
+        torch, flush, rec, pal4, hist, n_bins, bits, weight)
+    return fns
 
 
 def worker(tree: str) -> dict:
@@ -109,6 +195,15 @@ def worker(tree: str) -> dict:
         fns[f"path_c{cols}_ms"] = (
             lambda hist=hist, rec=rec, pal=pal, bits=bits, weight=weight:
             flush.accumulate_windowed(hist, rec, pal, n_bins, bits, weight))
+        fns.update(scatter_timings(torch, cs, flush, thist, tree,
+                                   f"c{cols}", rec, pal, n_bins, bits,
+                                   weight))
+    flushes, r_bins, r_bits = render_flushes(torch)
+    cs.check(r_bins == n_bins, f"the render has {r_bins} bins")
+    pal = torch.rand((1 << r_bits, 3), generator=gen).to(dev)
+    for tag, rec in zip(("first", "real"), flushes):
+        fns.update(scatter_timings(torch, cs, flush, thist, tree, tag, rec,
+                                   pal, n_bins, r_bits, 1.0))
     return {"tree": tree, **cs.medians(torch, fns)}
 
 

@@ -238,6 +238,169 @@ def test_win_flush_tile_edges(cuda, case, cols, weight):
     assert ref[:N_BINS, 3].sum() > 0
 
 
+# records a block of scatter_flush.cu's merged kernel (its kTile)
+MERGED_TILE = 4096
+# inputs the unsorted and the merged flush kernels are hard on, by name
+# (scatter_records makes them); tests/test_torch_scatter.py holds the
+# plain versions to the JAX package's kernels on the same list
+SCATTER_CASES = ("junk_97", "run_ends_on_tile", "run_across_one_tile_edge",
+                 "run_across_three_tiles", "all_equal", "all_distinct",
+                 "n_1", "n_31", "n_33", "n_4097", "past_n_bins_colours",
+                 "padding_after_junk")
+
+
+def scatter_records(case, n_bins, bits=8, tile=MERGED_TILE):
+    """Unsorted records (int64 numpy) of one of SCATTER_CASES.  The run
+    cases place one run of equal records at known positions of the
+    sorted order: ending exactly on a multiple of `tile`, across one
+    tile edge, and from inside one tile over three more.  The others:
+    97% junk; all records equal (a non-power-of-two count, so the
+    sort's padding follows them); all distinct; counts that are no
+    multiple of a warp or of a tile; addresses past n_bins with
+    different colours; a junk run right in front of the padding."""
+    rs = np.random.RandomState(SCATTER_CASES.index(case))
+    space = n_bins << bits          # records below it are live
+
+    def uniform(n, lo=0, hi=n_bins + 1):
+        return (rs.randint(lo, hi, n).astype(np.int64) << bits) \
+            | rs.randint(0, 1 << bits, n)
+
+    def run_at(start, length, total):
+        """`total` records: distinct ones below and above a run of
+        `length` equal records that starts at sorted position `start`."""
+        x = space // 2
+        low = rs.choice(x, start, replace=False)
+        high = x + 1 + rs.choice(space - x - 1, total - start - length,
+                                 replace=False)
+        return np.concatenate([low, np.full(length, x), high])
+    if case == "junk_97":
+        n = 2 * tile
+        rec = np.concatenate([uniform(n * 3 // 100, hi=n_bins),
+                              uniform(n - n * 3 // 100, lo=n_bins)])
+    elif case == "run_ends_on_tile":
+        rec = run_at(tile - 100, 100, 2 * tile)
+    elif case == "run_across_one_tile_edge":
+        rec = run_at(tile - 96, 200, 2 * tile)
+    elif case == "run_across_three_tiles":
+        rec = run_at(tile - 1096, 3 * tile, 4 * tile)
+    elif case == "all_equal":
+        rec = np.full(5000, (n_bins // 3 << bits) | 5)
+    elif case == "all_distinct":
+        rec = rs.choice(space, 2 * tile, replace=False)
+    elif case.startswith("n_"):
+        rec = uniform(int(case[2:]))
+    elif case == "past_n_bins_colours":
+        rec = np.concatenate([uniform(1500, lo=n_bins, hi=n_bins + 40),
+                              uniform(1500, hi=n_bins)])
+    else:   # padding_after_junk: 5000 records, padded to 8192
+        rec = np.concatenate([uniform(4000, hi=n_bins),
+                              uniform(1000, lo=n_bins)])
+    assert rec.max() < 0xFFFFFFFF
+    return rs.permutation(rec.astype(np.int64))
+
+
+def dyadic_palette(cols, bits=8):
+    """Palette entries that are multiples of 2^-8: with a weight of 3/8
+    every sum of a flush is exact in float32 in any order."""
+    return (np.random.RandomState(3).randint(0, 256, (1 << bits, cols))
+            / 256.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", SCATTER_CASES)
+@pytest.mark.parametrize("backend", ["pallas", "pallas_merged"])
+@pytest.mark.parametrize("cols,weight", [(3, None), (4, 0.375)])
+def test_scatter_flush_edge_cases(cuda, backend, case, cols, weight):
+    """packed_flush and merged_flush (scatter_flush.cu) through their
+    wrappers against their plain versions: density exact at weight 1.0
+    (the junk bin too), every channel of the real bins within 1e-5 of
+    the bin's density; one flush launch, and for the merged flush the
+    sort's passes before it."""
+    kernel, plain, name = FLUSHES[backend]
+    rec = scatter_records(case, N_BINS)
+    pal = dyadic_palette(cols)
+    before = flush.LAUNCHES[name]
+    sorts = tiled_sort.LAUNCHES["bitonic_sort"]
+    hist = thist.alloc(N_BINS, cuda)
+    got = kernel(hist, torch.as_tensor(rec, device=cuda),
+                 torch.as_tensor(pal, device=cuda), N_BINS, 8,
+                 weight=weight).cpu().numpy()
+    assert flush.LAUNCHES[name] == before + 1
+    assert tiled_sort.LAUNCHES["bitonic_sort"] == sorts + (
+        0 if backend == "pallas" else len(tiled_sort.bitonic_schedule(
+            1 << (rec.size - 1).bit_length())))
+    ref = plain(thist.alloc(N_BINS, "cpu"), torch.as_tensor(rec),
+                torch.as_tensor(pal), N_BINS, 8, weight=weight).numpy()
+    if weight is None:
+        np.testing.assert_array_equal(got[:, 3], ref[:, 3])
+        assert got[:, 3].sum() == rec.size
+    err = np.abs(got[:N_BINS] - ref[:N_BINS])
+    assert (err <= 1e-5 * np.maximum(ref[:N_BINS, 3:4], 1.0)).all()
+
+
+@pytest.mark.parametrize("case", SCATTER_CASES)
+def test_merged_kernel_alone_on_sorted_records(cuda, case):
+    """merged_flush launched alone on sorted records without the sort's
+    power-of-two padding (a ragged last tile), and with it."""
+    live = np.sort(scatter_records(case, N_BINS))
+    pal = dyadic_palette(3)
+    ref = flush.accumulate_merged_reference(
+        thist.alloc(N_BINS, "cpu"), torch.as_tensor(live),
+        torch.as_tensor(pal), N_BINS, 8).numpy()
+    p = flush._aligned_pal4(torch.as_tensor(pal, device=cuda))
+    pad = np.full((1 << (live.size - 1).bit_length()) - live.size + 8,
+                  0xFFFFFFFF)
+    for rec in (live, np.concatenate([live, pad])):
+        hist = thist.alloc(N_BINS, cuda)
+        r = torch.as_tensor(rec, device=cuda)
+        flush._launch("merged_flush", cuda, r.data_ptr(), r.numel(),
+                      p.data_ptr(), 8, N_BINS, 1.0, hist.data_ptr())
+        np.testing.assert_array_equal(hist.cpu().numpy(), ref)
+
+
+def test_merged_flush_merges_in_the_kernel(cuda, monkeypatch):
+    """On the card nothing runs between the sort and the launch: the
+    torch merge of the plain version is never called."""
+    def no_merge(*args, **kwargs):
+        raise AssertionError("the CUDA merged flush merged with torch ops")
+    monkeypatch.setattr(flush, "merge_records", no_merge)
+    monkeypatch.setattr(flush, "merge_sorted_records", no_merge)
+    rec = torch.as_tensor(_records(11, 5000, 8, 0), device=cuda)
+    pal = torch.rand((256, 3), device=cuda)
+    hist = flush.accumulate_merged(thist.alloc(N_BINS, cuda), rec, pal,
+                                   N_BINS, 8)
+    assert float(hist[:, 3].sum()) == 5000
+
+
+@pytest.mark.parametrize("case,atomics", [
+    # one atomic a block of 512 records for junk, whatever its colours
+    ("all_junk", 32),
+    # one a warp for 32 equal live records: 5000 = 156 x 32 + 8, and the
+    # last 8 lie in two loads of a warp
+    ("all_equal", 158),
+    # one a record where no two share a bin
+    ("all_distinct_bins", 8192)])
+def test_packed_flush_counts_its_atomics(cuda, case, atomics):
+    rs = np.random.RandomState(2)
+    if case == "all_junk":
+        rec = (np.int64(N_BINS) << 8) | rs.randint(0, 256, 16384)
+    elif case == "all_equal":
+        rec = scatter_records("all_equal", N_BINS)
+    else:
+        rec = (rs.choice(N_BINS, 8192, replace=False).astype(np.int64)
+               << 8) | rs.randint(0, 256, 8192)
+    r = torch.as_tensor(rec, device=cuda)
+    p = flush._aligned_pal4(torch.rand((256, 3), device=cuda))
+    hist = thist.alloc(N_BINS, cuda)
+    count = torch.zeros(1, dtype=torch.int64, device=cuda)
+    before = flush.LAUNCHES["packed_flush"]
+    flush._launch("packed_flush_counted", cuda, r.data_ptr(), r.numel(),
+                  p.data_ptr(), 8, N_BINS, 1.0, hist.data_ptr(),
+                  count.data_ptr())
+    assert flush.LAUNCHES["packed_flush"] == before + 1
+    assert int(count) == atomics
+    assert float(hist[:, 3].sum()) == rec.size
+
+
 def test_flush_raises_when_build_fails(cuda, monkeypatch):
     """No fallback: a kernel that cannot be built makes the CUDA flush
     raise instead of returning the plain result."""
