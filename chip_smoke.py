@@ -29,10 +29,12 @@ CUDA toolkit.  Phases, each printed on its own line:
               the synthetic mix of phases 3 and 6: junk share, touched
               bins, hot-bin shares, the unsorted flush (scatter_flush.cu)
               timed on each, with the atomics it made; and on the
-              first and the real flush, win_flush and the unsorted and
-              merged flushes checked as in phases 3 and 6, win_flush
-              and the merged flush timed with their kernel paths and
-              alone, and the sort, beside the split flush's kernel path
+              first and the real flush, win_flush, the unsorted, the
+              merged and the split flush checked as in phases 3 and 6,
+              and the three sorted flushes timed with their kernel
+              paths and alone, beside the sort, the split flush's two
+              launches also apart; each mix's bound for the logical
+              and for the split histogram
   5. parity   sierpinski and full_feature at 128x128 on cuda against
               the same render on the CPU (the flush's plain version):
               TV distance of the normalised density histograms under 3x
@@ -43,7 +45,8 @@ CUDA toolkit.  Phases, each printed on its own line:
               alone on sorted records, the unsorted one with the atomics
               it made; the split flush
               (win_flush_rgb16.cu) from a nonzero split histogram,
-              density bit-exact and rgb within one bf16 ulp; the tiled
+              density bit-exact and rgb within one bf16 ulp, and five
+              launches on the same sorted records bit-identical; the tiled
               bitonic sort (bitonic_sort.cu) equal to torch.sort at 2^22
               and 2^23 keys, with each pass's device time; times and
               bounds as in phase 3
@@ -86,7 +89,8 @@ KERNELS = {
 RENDER_BACKENDS = {"packed_flush": "pallas", "merged_flush": "pallas_merged",
                    "win_flush_rgb16": "pallas_rgb16"}
 # CUDA kernel launches of each flush kernel in one flush (the sort's
-# passes count under bitonic_sort)
+# passes count under bitonic_sort; the split flush launches its tiles
+# kernel and its resolve kernel)
 LAUNCHES_PER_FLUSH = {"win_flush": 1, "packed_flush": 1, "merged_flush": 1,
                       "win_flush_rgb16": 2}
 # wrapper and plain version of each flush of the logical histogram
@@ -297,64 +301,100 @@ def phase_flush(torch, flush, sort, thist, name, n_bins, acc_width,
     return results[3], max_err
 
 
+def split_start(torch, n_bins, gen):
+    """A nonzero logical histogram on the card: rgb up to 50, integer
+    density up to 999."""
+    dev = torch.device("cuda")
+    start = torch.rand((n_bins + 1, 4), generator=gen).to(dev) * 50.0
+    start[:, 3] = torch.randint(0, 1000, (n_bins + 1,),
+                                generator=gen).to(dev).float()
+    return start
+
+
+def check_rgb16(torch, flush, start, rec, pal, n_bins, bits, weight, what):
+    """The split flush through its wrapper against its plain version,
+    both from the split layout of `start`: rgb of the real bins within
+    one bf16 ulp, their density within 1e-5 of itself, and at weight 1.0
+    with a 3-column palette the density bit-exact, the junk bin's too.
+    Then five launches of the kernels alone on the same sorted records:
+    every one the wrapper's result bit for bit.  Returns the max abs
+    error."""
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    got = flush.accumulate_windowed_rgb16(
+        flush.to_split_layout(start), rec, pal, n_bins, bits, weight)
+    ref = flush.accumulate_windowed_rgb16_reference(
+        flush.to_split_layout(start), rec, pal, n_bins, bits, weight)
+    torch.cuda.synchronize()
+    name = f"win_flush_rgb16 on {what}"
+    # the junk bin is left out of the bounded checks, as in phase 3: with
+    # fractional density its sum of ~400K records differs by float32 order
+    gd, rd = got[0][:n_bins], ref[0][:n_bins]
+    d_err = (gd - rd).abs()
+    rg, rr = got[1][:n_bins].float(), ref[1][:n_bins].float()
+    ulp = torch.finfo(bf16).eps * rr.abs().clamp(min=torch.finfo(bf16).tiny)
+    rgb_err = (rg - rr).abs()
+    check(bool((rgb_err <= ulp).all()),
+          f"{name}: rgb off by more than one bf16 ulp (max err "
+          f"{float(rgb_err.max())}, weight {weight})")
+    check(bool((d_err <= 1e-5 * rd.clamp(min=1.0)).all()),
+          f"{name}: density max err {float(d_err.max())}")
+    if pal.shape[1] == 3 and weight == 1.0:
+        check(torch.equal(got[0], ref[0]),
+              f"{name}: density not bit-exact at weight 1.0")
+    check(float(got[0].double().sum()) > float(start[:, 3].double().sum()),
+          f"{name} added no mass")
+    srt = flush._aligned(flush.sort_records(rec))
+    pal4 = flush._aligned_pal4(pal)
+    for call in range(5):
+        split = flush.to_split_layout(start)
+        flush.rgb16_launch(srt, pal4, bits, n_bins, weight, split[0],
+                           split[1], flush.rgb16_scratch(srt.numel(), dev))
+        check(torch.equal(split[0], got[0])
+              and torch.equal(split[1].view(torch.int16),
+                              got[1].view(torch.int16)),
+              f"{name}: call {call} on the same records gave other bits")
+    return max(float(d_err.max()), float(rgb_err.max()))
+
+
+def rgb16_alone(torch, flush, srt, pal4, n_bins, bits, weight, split):
+    """A call of win_flush_rgb16.cu's kernels alone on sorted records."""
+    scratch = flush.rgb16_scratch(srt.numel(), srt.device)
+    return lambda: flush.rgb16_launch(srt, pal4, bits, n_bins, weight,
+                                      split[0], split[1], scratch)
+
+
 def phase_rgb16(torch, flush, n_bins, acc_width):
     """The split flush against its plain version from a nonzero split
     histogram (phase 6)."""
-    dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(5)
     n = 1 << 22
-    sync = torch.cuda.synchronize
     results, max_err = {}, 0.0
-    bf16 = torch.bfloat16
     for cols, bits, weight in FLUSH_CONFIGS:
         rec, pal = flush_inputs(torch, n, n_bins, acc_width, cols, bits,
                                 gen)
-        start = torch.rand((n_bins + 1, 4), generator=gen).to(dev) * 50.0
-        start[:, 3] = torch.randint(0, 1000, (n_bins + 1,),
-                                    generator=gen).to(dev).float()
-        got = flush.accumulate_windowed_rgb16(
-            flush.to_split_layout(start), rec, pal, n_bins, bits, weight)
-        ref = flush.accumulate_windowed_rgb16_reference(
-            flush.to_split_layout(start), rec, pal, n_bins, bits, weight)
-        sync()
-        # the junk bin is left out, as in phase 3: with fractional
-        # density its sum of ~400K records differs by float32 order
-        gd, rd = got[0][:n_bins], ref[0][:n_bins]
-        d_err = (gd - rd).abs()
-        rg, rr = got[1][:n_bins].float(), ref[1][:n_bins].float()
-        ulp = torch.finfo(bf16).eps * rr.abs().clamp(
-            min=torch.finfo(bf16).tiny)
-        rgb_err = (rg - rr).abs()
-        check(bool((rgb_err <= ulp).all()),
-              f"win_flush_rgb16: rgb off by more than one bf16 ulp "
-              f"(max err {float(rgb_err.max())}, weight {weight})")
-        check(bool((d_err <= 1e-5 * rd.clamp(min=1.0)).all()),
-              f"win_flush_rgb16: density max err {float(d_err.max())}")
-        if cols == 3:
-            check(torch.equal(gd, rd),
-                  "win_flush_rgb16: density not bit-exact at weight 1.0")
-        check(float(got[0].sum()) > float(start[:, 3].sum()),
-              "win_flush_rgb16 added no mass")
-        err = max(float(d_err.max()), float(rgb_err.max()))
+        start = split_start(torch, n_bins, gen)
+        err = check_rgb16(torch, flush, start, rec, pal, n_bins, bits,
+                          weight, "the synthetic mix")
         max_err = max(max_err, err)
 
         sk = flush.to_split_layout(start)
         sr = flush.to_split_layout(start)
-        srt = torch.sort(rec).values
-        pal4 = flush._pal4(pal).contiguous()
-        carry = torch.zeros((n // flush.RGB16_RUN, 4), device=dev)
-
-        def kernel_only():
-            carry.zero_()
-            flush.rgb16_launch(srt, pal4, bits, n_bins, weight, sk[0],
-                               sk[1], carry)
+        del start
+        srt = flush._aligned(torch.sort(rec).values)
         med = medians(torch, {
             "ms": lambda: flush.accumulate_windowed_rgb16(
                 sk, rec, pal, n_bins, bits, weight),
             "plain_ms": lambda: flush.accumulate_windowed_rgb16_reference(
                 sr, rec, pal, n_bins, bits, weight),
-            "kernel_only_ms": kernel_only,
+            "kernel_only_ms": rgb16_alone(
+                torch, flush, srt, flush._aligned_pal4(pal), n_bins, bits,
+                weight, sk),
         })
+        med["tiles_resolve_device_ms"] = launch_device_ms(
+            torch, flush._build, rgb16_alone(
+                torch, flush, srt, flush._aligned_pal4(pal), n_bins, bits,
+                weight, sk))
         touched = touched_bins(torch, rec, n_bins, bits)
         # records once; per touched bin 4 bytes of density and 6 of rgb,
         # read and written once
@@ -366,7 +406,10 @@ def phase_rgb16(torch, flush, n_bins, acc_width):
         results[cols] = med
         phase(6, "kernel", kernel="win_flush_rgb16", palette_cols=cols,
               weight=weight, records=n, bins=n_bins, touched_bins=touched,
-              max_abs_err=err, density_exact=cols == 3, **med)
+              max_abs_err=err, density_exact=cols == 3,
+              same_bits_in_5_calls=True,
+              launches_per_flush=LAUNCHES_PER_FLUSH["win_flush_rgb16"],
+              **med)
     return results[3], max_err
 
 
@@ -403,7 +446,9 @@ def phase_sort(torch, tiled_sort):
             "library_ms": lambda: torch.sort(k),
         }, reps=10 if log_n == 22 else 3)
         passes = tiled_sort.bitonic_schedule(n)
-        per_pass = sort_pass_ms(torch, tiled_sort, k)
+        per_pass = launch_device_ms(
+            torch, tiled_sort._build,
+            lambda: tiled_sort.bitonic_sort_u32_tiled(k))
         # int64 keys read once and written once; a min and a max for
         # each pair of every substage of the network
         substages = log_n * (log_n + 1) // 2
@@ -419,18 +464,19 @@ def phase_sort(torch, tiled_sort):
     return results[22], max_err
 
 
-def sort_pass_ms(torch, tiled_sort, keys, reps=5):
-    """Device ms of each pass of the kernel sort of `keys`: an event
-    after every launch, the host ahead of the device (as in timed);
-    medians of `reps` sorts after a warm-up."""
-    launch = tiled_sort._build.launch
+def launch_device_ms(torch, build, fn, reps=5):
+    """Device ms of each kernel launch that `fn` makes through
+    build.launch, in order: an event after every launch, the host ahead
+    of the device (as in timed); medians of `reps` calls after a
+    warm-up."""
+    launch = build.launch
     events = []
 
     def marked(*args):
         launch(*args)
         events.append(torch.cuda.Event(enable_timing=True))
         events[-1].record()
-    tiled_sort._build.launch = marked
+    build.launch = marked
     try:
         per = []
         for _ in range(reps + 1):
@@ -439,12 +485,12 @@ def sort_pass_ms(torch, tiled_sort, keys, reps=5):
             torch.cuda._sleep(SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             start.record()
-            tiled_sort.bitonic_sort_u32_tiled(keys)
+            fn()
             torch.cuda.synchronize()
             marks = [start, *events]
             per.append([a.elapsed_time(b) for a, b in zip(marks, marks[1:])])
     finally:
-        tiled_sort._build.launch = launch
+        build.launch = launch
     return [statistics.median(col) for col in zip(*per[1:])]
 
 
@@ -535,9 +581,9 @@ def phase_flush_mix(torch, flush, sort, thist, flushes, n_bins, acc_width,
     the kernel phases (phase 4): how they spread; the unsorted flush
     timed on each, with and without the junk bin's records, and the
     atomics it made; and, on the real records, win_flush and the
-    unsorted and merged flushes checked against their plain versions,
-    win_flush and the merged flush timed as kernel path and alone,
-    beside the sort and the split flush's kernel path.
+    unsorted, merged and split flushes checked against their plain
+    versions, and the three sorted flushes timed as kernel path and
+    alone, beside the sort.
     The first flush of a render holds the fuse steps, whose points all
     go to the junk bin; the second is what every later flush looks
     like."""
@@ -549,7 +595,9 @@ def phase_flush_mix(torch, flush, sort, thist, flushes, n_bins, acc_width,
     hist = thist.alloc(n_bins, dev)
     split = flush.alloc_split(n_bins, dev)
     pal4 = flush._pal4(pal).contiguous()
-    fns, errs, atomics = {}, dict.fromkeys(LOGICAL_FLUSHES, 0.0), {}
+    fns, atomics = {}, {}
+    errs = dict.fromkeys([*LOGICAL_FLUSHES, "win_flush_rgb16"], 0.0)
+    start = split_start(torch, n_bins, gen)
     for name, r in (("first", flushes[0]), ("real", rec),
                     ("synthetic", synth)):
         live = r[(r >> bits) < n_bins]
@@ -568,6 +616,10 @@ def phase_flush_mix(torch, flush, sort, thist, flushes, n_bins, acc_width,
                 errs[kernel] = max(errs[kernel], check_flush(
                     torch, flush, thist, kernel, r, p, n_bins, bits,
                     weight, f"the {name} flush"))
+            errs["win_flush_rgb16"] = max(
+                errs["win_flush_rgb16"], check_rgb16(
+                    torch, flush, start, r, p, n_bins, bits, weight,
+                    f"the {name} flush"))
         srt = sort.sort_records(r)
         fns[f"{name}_win_ms"] = (lambda r=r: flush.accumulate_windowed(
             hist, r, pal, n_bins, bits))
@@ -576,8 +628,8 @@ def phase_flush_mix(torch, flush, sort, thist, flushes, n_bins, acc_width,
                 "win_flush", dev, srt.data_ptr(), srt.numel(),
                 pal4.data_ptr(), bits, n_bins, 1.0, hist.data_ptr()))
         fns[f"{name}_sort_ms"] = lambda r=r: sort.sort_records(r)
-        # the other two sorted flushes on the same records: the merged
-        # flush's kernel path and its kernel alone, the split flush's path
+        # the other two sorted flushes on the same records, each as its
+        # kernel path and alone
         fns[f"{name}_merged_ms"] = (lambda r=r: flush.accumulate_merged(
             hist, r, pal, n_bins, bits))
         fns[f"{name}_merged_kernel_only_ms"] = (
@@ -587,7 +639,15 @@ def phase_flush_mix(torch, flush, sort, thist, flushes, n_bins, acc_width,
         fns[f"{name}_rgb16_ms"] = (
             lambda r=r: flush.accumulate_windowed_rgb16(split, r, pal,
                                                         n_bins, bits))
+        fns[f"{name}_rgb16_kernel_only_ms"] = rgb16_alone(
+            torch, flush, flush._aligned(srt), pal4, n_bins, bits, 1.0,
+            split)
+    del start
     med = medians(torch, fns)
+    # the split flush's two launches apart: its tiles, then its resolve
+    for name in ("first", "real"):
+        med[f"{name}_rgb16_tiles_resolve_device_ms"] = launch_device_ms(
+            torch, flush._build, fns[f"{name}_rgb16_kernel_only_ms"])
     mixes = {name: flush_mix(torch, r, n_bins, bits)
              for name, r in (("first", flushes[0]), ("real", rec),
                              ("synthetic", synth))}
@@ -596,10 +656,16 @@ def phase_flush_mix(torch, flush, sort, thist, flushes, n_bins, acc_width,
     bounds = {name: bound(m["records"] * 8 + (m["touched_bins"] + 1) * 32
                           + pal4.numel() * 4)[0]
               for name, m in mixes.items()}
+    # the split flush's: 4 bytes of density and 6 of rgb a touched bin
+    rgb16_bounds = {name: bound(m["records"] * 8
+                                + (m["touched_bins"] + 1) * 20
+                                + pal4.numel() * 4)[0]
+                    for name, m in mixes.items()}
     phase(4, "flush_mix", kernels=["packed_flush", "win_flush",
                                    "bitonic_sort", "merged_flush",
                                    "win_flush_rgb16"], color_bits=bits,
-          **mixes, bound_ms=bounds, packed_flush_atomics=atomics,
+          **mixes, bound_ms=bounds, rgb16_bound_ms=rgb16_bounds,
+          packed_flush_atomics=atomics,
           **{f"{k}_max_abs_err": v for k, v in errs.items()}, **med)
 
 

@@ -16,6 +16,8 @@ counterpart for sm_90a in `csrc/`, built at first use by
   win_flush_rgb16.cu  windowed flush into f32 density + bf16 rgb
                       (backend pallas_rgb16)
   bitonic_sort.cu     tiled bitonic sort (ops/tiled_sort.py)
+  tile_scan.cuh       the pass over a tile of sorted records that the two
+                      windowed flushes share
 
   device.py     — explicit device resolution; never picks CPU by itself
   params.py     — GenomeParams and iteration state as tensors

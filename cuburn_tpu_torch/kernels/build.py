@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one `csrc/<name>.cu` file with a plain C entry point.
-`nvcc` compiles it for Hopper (`sm_90a`) into a shared library under
-`cuburn_tpu_torch/_build/`, named by a hash of the source and the
-flags, and `ctypes` loads it.  The build runs at first use in a
+Each kernel is one `csrc/<name>.cu` file with a plain C entry point;
+what several share lives in `csrc/*.cuh` headers.  `nvcc` compiles a
+source for Hopper (`sm_90a`) into a shared library under
+`cuburn_tpu_torch/_build/`, named by a hash of the source, every header
+and the flags, and `ctypes` loads it.  The build runs at first use in a
 process, from the sources in the checkout; a library already built from
 the same source is reused.  Nothing here runs at import time.
 """
@@ -48,9 +49,12 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from csrc/<name>.cu with NVCC_FLAGS
-    lives."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    lives.  The name changes with the source and with any csrc/*.cuh
+    header, so a changed header rebuilds every library."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

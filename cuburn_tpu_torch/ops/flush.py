@@ -18,7 +18,9 @@ warp, before the atomic), and `accumulate_merged` is `sort_records`
 and one launch: the kernel finds the runs of the sorted records and
 their counts itself.  `merge_records` (the port of the JAX package's
 sort + `merge_sorted_records`) is the plain version's path and the
-CPU's only.
+CPU's only.  `accumulate_windowed_rgb16` is `sort_records` and two
+launches, the tiles and the resolve of the runs that cross tile edges;
+`rgb16_tiled_model` is that scheme in plain PyTorch, for the tests.
 
 All but the last update the logical (n_bins + 1, 4) float32 histogram
 IN PLACE, like the JAX package's in-place mode; `pallas_rgb16` updates
@@ -39,8 +41,8 @@ from cuburn_tpu_torch.ops.sort import (SENTINEL, merge_sorted_records,
                                        sort_records, sort_records_reference)
 
 # kernel name -> CUDA kernel launches through its wrapper: one per
-# flush for all but win_flush_rgb16, which launches two (its runs and
-# carry passes); the sort in front of a sorted flush counts in
+# flush for all but win_flush_rgb16, which launches two (its tiles and
+# resolve kernels); the sort in front of a sorted flush counts in
 # tiled_sort.LAUNCHES
 LAUNCHES = {"win_flush": 0, "packed_flush": 0, "merged_flush": 0,
             "win_flush_rgb16": 0}
@@ -59,16 +61,14 @@ _ENTRIES = {
                               _P)),
     "merged_flush": ("scatter_flush", "merged_flush",
                      (_P, _I64, _P, ctypes.c_int, _I64, _F, _P)),
-    "win_flush_rgb16_runs": ("win_flush_rgb16", "win_flush_rgb16",
-                             (_P, _I64, _P, ctypes.c_int, _I64, _F, _P, _P,
-                              _P)),
-    "win_flush_rgb16_carry": ("win_flush_rgb16", "win_flush_rgb16",
-                              (_P, _I64, ctypes.c_int, _I64, _F, _P, _P,
+    "win_flush_rgb16_tiles": ("win_flush_rgb16", "win_flush_rgb16",
+                              (_P, _I64, _P, ctypes.c_int, _I64, _F, _P, _P,
                                _P)),
+    "win_flush_rgb16_resolve": ("win_flush_rgb16", "win_flush_rgb16",
+                                (_P, _I64, _F, _P, _P)),
 }
-# records per thread of win_flush_rgb16.cu (its kRun): one carry row
-# per chunk of this many sorted records
-RGB16_RUN = 16
+# sorted records per block of win_flush_rgb16.cu (its kTile)
+RGB16_TILE = 2048
 
 
 def _pal4(palette_hi: torch.Tensor) -> torch.Tensor:
@@ -344,8 +344,11 @@ def accumulate_windowed_rgb16(hist_split, packed_records, palette_hi,
     Density never leaves float32, so it stays exact at weight 1.0 with
     a 3-column palette; rgb is rounded to bf16 once per touched bin per
     flush, never once per record.  CUDA tensors sort with sort_records
-    and launch win_flush_rgb16.cu, which sums each sorted run in float32 and
-    writes its bin once.  Returns (dens, rgb)."""
+    and launch win_flush_rgb16.cu's two kernels, which sum each sorted
+    run in float32 in a fixed order and write its bin once: the same
+    records give the same bits on every call.  No PyTorch op that
+    launches a kernel runs between the sort and them.  Returns
+    (dens, rgb)."""
     _check_split(hist_split, packed_records, palette_hi, n_bins,
                  color_bits)
     dens, rgb = hist_split
@@ -354,22 +357,107 @@ def accumulate_windowed_rgb16(hist_split, packed_records, palette_hi,
             hist_split, packed_records, palette_hi, n_bins, color_bits,
             weight)
     pal4 = _aligned_pal4(palette_hi)
-    recs = sort_records(packed_records).contiguous()
-    carry = torch.zeros((-(-recs.numel() // RGB16_RUN), 4),
-                        dtype=torch.float32, device=dens.device)
+    recs = _aligned(sort_records(packed_records))
     rgb16_launch(recs, pal4, color_bits, n_bins, _weight(weight), dens,
-                 rgb, carry)
+                 rgb, rgb16_scratch(recs.numel(), dens.device))
     return dens, rgb
 
 
+def rgb16_scratch(n: int, device) -> torch.Tensor:
+    """The scratch win_flush_rgb16.cu needs for n sorted records: for
+    each tile of RGB16_TILE records 16 bytes each for the sum of a run
+    that came in from the tile before (head), of one that goes on into
+    the tile after (tail), and for the tile's flags.  Uninitialised:
+    every tile writes its flags, and a sum is read only where they say
+    it was written."""
+    return torch.empty((3, -(-n // RGB16_TILE), 4), dtype=torch.float32,
+                       device=device)
+
+
 def rgb16_launch(recs, pal4, color_bits: int, n_bins: int, weight: float,
-                 dens, rgb, carry):
-    """win_flush_rgb16.cu's two passes over sorted records `recs`, with
-    `carry` a zeroed (ceil(n / RGB16_RUN), 4) float32 scratch."""
+                 dens, rgb, scratch):
+    """win_flush_rgb16.cu's two kernels over sorted records `recs`
+    (16-byte aligned): the tiles, then the resolve of the runs that
+    cross tile edges, with `scratch` from rgb16_scratch(recs.numel())."""
     n = recs.numel()
-    _launch("win_flush_rgb16_runs", dens.device, recs.data_ptr(), n,
+    if scratch.shape != (3, -(-n // RGB16_TILE), 4) \
+            or scratch.dtype != torch.float32 \
+            or not scratch.is_contiguous():
+        raise ValueError(
+            f"scratch must be rgb16_scratch({n}), got "
+            f"{scratch.dtype} {tuple(scratch.shape)}")
+    if recs.data_ptr() % 16 or rgb.data_ptr() % 4:
+        raise ValueError("sorted records must lie on a 16-byte boundary "
+                         "and rgb on a 4-byte one")
+    _launch("win_flush_rgb16_tiles", dens.device, recs.data_ptr(), n,
             pal4.data_ptr(), color_bits, n_bins, weight, dens.data_ptr(),
-            rgb.data_ptr(), carry.data_ptr())
-    _launch("win_flush_rgb16_carry", dens.device, recs.data_ptr(), n,
-            color_bits, n_bins, weight, dens.data_ptr(), rgb.data_ptr(),
-            carry.data_ptr())
+            rgb.data_ptr(), scratch.data_ptr())
+    _launch("win_flush_rgb16_resolve", dens.device, scratch.data_ptr(), n,
+            weight, dens.data_ptr(), rgb.data_ptr())
+
+
+def rgb16_tiled_model(hist_split, sorted_records, palette_hi, n_bins: int,
+                      color_bits: int, weight=None, tile: int = RGB16_TILE):
+    """win_flush_rgb16.cu's bookkeeping in plain PyTorch, for the tests:
+    the kernel's scheme at any tile size, not a flush anyone calls.
+
+    Over sorted records (sentinels last), tile by tile: a run of equal
+    bins inside a tile is written at once; the part of a run that came
+    in from the tile before goes into the tile's head slot, with
+    whether the run ends in this tile; the part of a run that starts
+    here and goes on into the next tile goes into its tail slot.  Then
+    the tiles are walked in order: a head adds to the open sum, a head
+    that closes writes its bin from it, a tail opens a new one.  A tile
+    of sentinels has empty slots.  Updates (dens, rgb) in place and
+    returns (dens, rgb, writes): writes[b] counts the writes of bin
+    b."""
+    _check_split(hist_split, sorted_records, palette_hi, n_bins,
+                 color_bits)
+    dens, rgb = hist_split
+    recs = sorted_records.reshape(-1)
+    n, w = recs.numel(), _weight(weight)
+    if n > 1 and bool((recs[1:] < recs[:-1]).any()):
+        raise ValueError("records must be sorted ascending")
+    none = n_bins + 1                   # the bin of a sentinel
+    bins = torch.where(recs >= SENTINEL, none,
+                       torch.clamp(recs >> color_bits, max=n_bins))
+    rows = _pal4(palette_hi)[recs & ((1 << color_bits) - 1)]
+    writes = torch.zeros(n_bins + 1, dtype=torch.int64)
+
+    def write_bin(b, s):
+        dens[b] += w * s[3]
+        rgb[b] = (rgb[b].to(torch.float32) + w * s[:3]).to(torch.bfloat16)
+        writes[b] += 1
+
+    slots = []          # per tile: (head sum, closes, head bin, tail sum)
+    for lo in range(0, n, tile):
+        hi = min(lo + tile, n)
+        head = tail = head_bin = None
+        closes = False
+        if bins[lo] != none:
+            from_before = lo > 0 and bins[lo - 1] == bins[lo]
+            into_next = hi < n and bins[hi] != none \
+                and bins[hi] == bins[hi - 1]
+            live = lo + int((bins[lo:hi] != none).sum())
+            starts = [lo] + [i for i in range(lo + 1, live)
+                             if bins[i] != bins[i - 1]]
+            for s, e in zip(starts, starts[1:] + [live]):
+                run = rows[s:e].sum(dim=0)
+                if s == lo and from_before:
+                    head, head_bin = run, int(bins[s])
+                    closes = not (e == hi and into_next)
+                elif e == hi and into_next:
+                    tail = run
+                else:
+                    write_bin(int(bins[s]), run)
+        slots.append((head, closes, head_bin, tail))
+    open_sum = None
+    for head, closes, head_bin, tail in slots:
+        if head is not None:
+            open_sum = open_sum + head
+            if closes:
+                write_bin(head_bin, open_sum)
+                open_sum = None
+        if tail is not None:
+            open_sum = tail
+    return dens, rgb, writes

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the tiled sort and the logical-histogram flushes of two
-checkouts of the port on one NVIDIA GPU, in turns.
+"""Time the tiled sort and the flushes of two checkouts of the port on
+one NVIDIA GPU, in turns.
 
     python3 kernel_ab.py OLD_DIR NEW_DIR [--rounds R]
 
@@ -33,14 +33,24 @@ with sign-bit and sentinel values) it times:
   _c4                   where the checkout's kernel merges the runs
                         itself, else on the unique records and counts
                         its torch merge made beforehand
+  rgb16_c3, _c4         accumulate_windowed_rgb16 (the pallas_rgb16
+                        kernel path: the sort, then the split flush's
+                        kernels)
+  rgb16_kernel_c3, _c4  the split flush's kernels alone on sorted
+                        records, with whatever scratch the checkout's
+                        kernels need made ready as a flush must (a
+                        checkout whose scratch has to be zero zeroes it
+                        inside the timed call)
 
 and, on the records of the first two flushes of the checkout's own
 full_feature 1080p render (the first holds the fuse steps, 97% junk; the
 second is what every later flush looks like), 3-column palette at
 weight 1.0: packed_first, packed_real, merged_first, merged_real,
-merged_kernel_first, merged_kernel_real.  Every packed and merged flush
-is checked against its plain version first: density bit-exact at weight
-1.0, channels within 1e-5 of the bin's density.
+merged_kernel_first, merged_kernel_real, rgb16_first, rgb16_real,
+rgb16_kernel_first, rgb16_kernel_real.  Every packed, merged and split
+flush is checked against its plain version first: density bit-exact at
+weight 1.0, channels within 1e-5 of the bin's density, the split
+flush's rgb within one bf16 ulp.
 
 Prints one JSON line per process, then the card's nvidia-smi line and a
 last JSON line with, for each timing, the values of OLD's and NEW's
@@ -107,6 +117,60 @@ def merged_kernel_alone(torch, flush, rec, pal4, hist, n_bins, bits, weight):
     return lambda: flush._launch(
         "merged_flush", dev, srt.data_ptr(), srt.numel(), pal4.data_ptr(),
         bits, n_bins, weight, hist.data_ptr())
+
+
+def rgb16_kernel_alone(torch, flush, rec, pal4, split, n_bins, bits,
+                       weight):
+    """A call of the checkout's split-flush kernels alone on `rec`,
+    sorted here."""
+    srt = flush._aligned(torch.sort(rec.reshape(-1)).values)
+    if hasattr(flush, "rgb16_scratch"):
+        scratch = flush.rgb16_scratch(srt.numel(), srt.device)
+        return lambda: flush.rgb16_launch(srt, pal4, bits, n_bins, weight,
+                                          split[0], split[1], scratch)
+    # a carry row per RGB16_RUN records, zero before every flush
+    carry = torch.zeros((-(-srt.numel() // flush.RGB16_RUN), 4),
+                        device=srt.device)
+
+    def zero_and_launch():
+        carry.zero_()
+        flush.rgb16_launch(srt, pal4, bits, n_bins, weight, split[0],
+                           split[1], carry)
+    return zero_and_launch
+
+
+def rgb16_timings(torch, cs, flush, tree, tag, rec, pal, n_bins, bits,
+                  weight):
+    """{name: call} for the split flush's kernel path and its kernels
+    alone on one set of records, the path checked against its plain
+    version first."""
+    dev = rec.device
+    got = flush.accumulate_windowed_rgb16(
+        flush.alloc_split(n_bins, dev), rec, pal, n_bins, bits, weight)
+    ref = flush.accumulate_windowed_rgb16_reference(
+        flush.alloc_split(n_bins, dev), rec, pal, n_bins, bits, weight)
+    torch.cuda.synchronize()
+    if pal.shape[1] == 3 and weight == 1.0:
+        cs.check(torch.equal(got[0], ref[0]),
+                 f"{tree}: rgb16 density not bit-exact ({tag})")
+    d_err = (got[0][:n_bins] - ref[0][:n_bins]).abs()
+    cs.check(bool((d_err <= 1e-5 * ref[0][:n_bins].clamp(min=1.0)).all()),
+             f"{tree}: rgb16 density disagrees ({tag}): "
+             f"{float(d_err.max())}")
+    rr = ref[1][:n_bins].float()
+    ulp = torch.finfo(torch.bfloat16).eps * rr.abs().clamp(
+        min=torch.finfo(torch.bfloat16).tiny)
+    rgb_err = (got[1][:n_bins].float() - rr).abs()
+    cs.check(bool((rgb_err <= ulp).all()),
+             f"{tree}: rgb16 rgb off by more than one bf16 ulp ({tag}): "
+             f"{float(rgb_err.max())}")
+    split = flush.alloc_split(n_bins, dev)
+    pal4 = flush._pal4(pal).contiguous().clone()
+    return {
+        f"rgb16_{tag}_ms": lambda: flush.accumulate_windowed_rgb16(
+            split, rec, pal, n_bins, bits, weight),
+        f"rgb16_kernel_{tag}_ms": rgb16_kernel_alone(
+            torch, flush, rec, pal4, split, n_bins, bits, weight)}
 
 
 def scatter_timings(torch, cs, flush, thist, tree, tag, rec, pal, n_bins,
@@ -198,12 +262,16 @@ def worker(tree: str) -> dict:
         fns.update(scatter_timings(torch, cs, flush, thist, tree,
                                    f"c{cols}", rec, pal, n_bins, bits,
                                    weight))
+        fns.update(rgb16_timings(torch, cs, flush, tree, f"c{cols}", rec,
+                                 pal, n_bins, bits, weight))
     flushes, r_bins, r_bits = render_flushes(torch)
     cs.check(r_bins == n_bins, f"the render has {r_bins} bins")
     pal = torch.rand((1 << r_bits, 3), generator=gen).to(dev)
     for tag, rec in zip(("first", "real"), flushes):
         fns.update(scatter_timings(torch, cs, flush, thist, tree, tag, rec,
                                    pal, n_bins, r_bits, 1.0))
+        fns.update(rgb16_timings(torch, cs, flush, tree, tag, rec, pal,
+                                 n_bins, r_bits, 1.0))
     return {"tree": tree, **cs.medians(torch, fns)}
 
 

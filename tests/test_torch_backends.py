@@ -324,8 +324,9 @@ def test_record_bits_keep_records_below_the_sentinel(n_bins, n_xforms):
 
 def test_launch_counts_each_kernel_launch(monkeypatch):
     """The shared launch helper counts one per C entry call, each entry
-    one kernel: the split flush's two passes count two, in order; an
-    entry that reports a CUDA error raises and is not counted."""
+    one kernel: the split flush's tiles and resolve kernels count two,
+    in order; an entry that reports a CUDA error raises and is not
+    counted."""
     calls = []
 
     class Lib:
@@ -341,8 +342,8 @@ def test_launch_counts_each_kernel_launch(monkeypatch):
     dens, rgb = flush.alloc_split(N_BINS, "cpu")
     recs = torch.zeros(64, dtype=torch.int64)
     flush.rgb16_launch(recs, torch.zeros((256, 4)), 8, N_BINS, 1.0, dens,
-                       rgb, torch.zeros((4, 4)))
-    assert calls == ["win_flush_rgb16_runs", "win_flush_rgb16_carry"]
+                       rgb, flush.rgb16_scratch(64, "cpu"))
+    assert calls == ["win_flush_rgb16_tiles", "win_flush_rgb16_resolve"]
     assert flush.LAUNCHES["win_flush_rgb16"] == before + 2
     counts = {"k": 0}
     with pytest.raises(RuntimeError, match="CUDA error 700"):

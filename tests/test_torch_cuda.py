@@ -117,7 +117,7 @@ def test_rgb16_kernel_matches_plain_version(cuda, weight):
                        torch.as_tensor(pal, device=dev), N_BINS, 8,
                        weight=weight)
         assert dens is split[0] and rgb is split[1]
-        # two kernels a flush on the card: the runs and carry passes
+        # two kernels a flush on the card: the tiles, then the resolve
         assert flush.LAUNCHES["win_flush_rgb16"] \
             == before + 2 * (dev == cuda)
         outs.append((dens.cpu(), rgb.cpu()))
@@ -236,6 +236,129 @@ def test_win_flush_tile_edges(cuda, case, cols, weight):
         err = np.abs(got[:N_BINS] - ref[:N_BINS])
         assert (err <= 1e-5 * np.maximum(ref[:N_BINS, 3:4], 1.0)).all()
     assert ref[:N_BINS, 3].sum() > 0
+
+
+def _rgb16_alone(rec, pal, split, weight, device):
+    """win_flush_rgb16.cu's two kernels alone on sorted records `rec`
+    (numpy), into `split` in place."""
+    r = torch.as_tensor(rec, device=device)
+    p = flush._aligned_pal4(torch.as_tensor(pal, device=device))
+    before = flush.LAUNCHES["win_flush_rgb16"]
+    flush.rgb16_launch(r, p, 8, N_BINS, 1.0 if weight is None else weight,
+                       split[0], split[1],
+                       flush.rgb16_scratch(r.numel(), device))
+    torch.cuda.synchronize()
+    assert flush.LAUNCHES["win_flush_rgb16"] == before + 2
+    return split
+
+
+def _split_start(seed, device):
+    """A nonzero split histogram: integer density, rgb up to 50."""
+    rs = np.random.RandomState(seed)
+    start = rs.rand(N_BINS + 1, 4).astype(np.float32) * 50.0
+    start[:, 3] = rs.randint(0, 1000, N_BINS + 1)
+    return flush.to_split_layout(torch.as_tensor(start, device=device))
+
+
+# sorted records that put runs on win_flush_rgb16.cu's tile edges: the
+# windowed flush's five cases, and the run cases of SCATTER_CASES sorted
+RGB16_CASES = ("junk_97", "run_one_tile_aligned", "run_many_tiles",
+               "sentinel_tail", "ragged", "run_ends_on_tile",
+               "run_across_one_tile_edge", "run_across_three_tiles",
+               "all_equal", "all_distinct", "n_1", "n_4097",
+               "padding_after_junk")
+
+
+def _rgb16_records(case):
+    if case in ("junk_97", "run_one_tile_aligned", "run_many_tiles",
+                "sentinel_tail", "ragged"):
+        return _sorted_records(case)
+    return np.sort(scatter_records(case, N_BINS))
+
+
+@pytest.mark.parametrize("case", RGB16_CASES)
+@pytest.mark.parametrize("cols,weight", [(3, None), (4, 0.375)])
+def test_rgb16_tile_edges(cuda, case, cols, weight):
+    """win_flush_rgb16.cu on sorted records, its two kernels alone and
+    through the wrapper, from a nonzero split histogram, against the
+    plain version.  Palette entries are multiples of 2^-8 and the weight
+    3/8, so every sum of a real bin is exact in float32 in any order:
+    density and the bf16 rgb equal the plain version's bit for bit, and
+    bins without records keep their bits.  The junk bin's count is
+    exact at weight 1.0; its sum of up to 127K colours is not."""
+    rec = _rgb16_records(case)
+    pal = dyadic_palette(cols)
+    ref = flush.accumulate_windowed_rgb16_reference(
+        _split_start(4, "cpu"), torch.as_tensor(rec), torch.as_tensor(pal),
+        N_BINS, 8, weight=weight)
+    outs = [_rgb16_alone(rec, pal, _split_start(4, cuda), weight, cuda)]
+    live = torch.as_tensor(rec[rec != 0xFFFFFFFF], device=cuda)
+    sorts = tiled_sort.LAUNCHES["bitonic_sort"]
+    outs.append(flush.accumulate_windowed_rgb16(
+        _split_start(4, cuda), live[torch.randperm(live.numel(),
+                                                   device=cuda)],
+        torch.as_tensor(pal, device=cuda), N_BINS, 8, weight=weight))
+    assert tiled_sort.LAUNCHES["bitonic_sort"] == sorts + len(
+        tiled_sort.bitonic_schedule(1 << (live.numel() - 1).bit_length()))
+    for dens, rgb in outs:
+        if weight is None:
+            assert torch.equal(dens.cpu(), ref[0])
+        assert torch.equal(dens.cpu()[:N_BINS], ref[0][:N_BINS])
+        assert torch.equal(rgb.cpu()[:N_BINS].view(torch.int16),
+                           ref[1][:N_BINS].view(torch.int16))
+    start = _split_start(4, "cpu")
+    assert float(ref[0].double().sum()) > float(start[0].double().sum())
+
+
+@pytest.mark.parametrize("case", ["run_many_tiles", "junk_97", "ragged",
+                                  "all_equal"])
+def test_rgb16_same_records_same_bits(cuda, case):
+    """Five calls on the same sorted records from the same start give the
+    same density and the same bf16 bits: the sums are formed in a fixed
+    order, never by atomics.  A random float32 palette, so that another
+    order would show."""
+    rec = _rgb16_records(case)
+    pal = np.random.RandomState(12).rand(256, 3).astype(np.float32)
+    first = None
+    for _ in range(5):
+        dens, rgb = _rgb16_alone(rec, pal, _split_start(5, cuda), 0.37,
+                                 cuda)
+        if first is None:
+            first = (dens, rgb)
+        assert torch.equal(dens, first[0])
+        assert torch.equal(rgb.view(torch.int16), first[1].view(torch.int16))
+    ref = flush.accumulate_windowed_rgb16_reference(
+        _split_start(5, "cpu"), torch.as_tensor(rec), torch.as_tensor(pal),
+        N_BINS, 8, weight=0.37)
+    dg, rg = first[0].cpu()[:N_BINS], first[1].cpu()[:N_BINS].float()
+    dr, rr = ref[0][:N_BINS], ref[1][:N_BINS].float()
+    assert bool(((dg - dr).abs() <= 1e-5 * dr.clamp(min=1.0)).all())
+    ulp = torch.finfo(torch.bfloat16).eps * rr.abs().clamp(
+        min=torch.finfo(torch.bfloat16).tiny)
+    assert bool(((rg - rr).abs() <= ulp).all())
+
+
+def test_rgb16_large_junk_run_is_exact(cuda):
+    """A junk run over ~2000 tiles, as in a render's first flush: the
+    junk bin's density is the exact count, through the resolve kernel's
+    scan over all tiles, several tiles a thread."""
+    rs = np.random.RandomState(13)
+    n = (1 << 22) + 5000            # 2051 tiles: three a resolve thread
+    live = np.sort((rs.randint(0, N_BINS, n // 32).astype(np.int64) << 8)
+                   | rs.randint(0, 256, n // 32))
+    junk = np.sort((np.int64(N_BINS) << 8) | rs.randint(0, 256,
+                                                        n - live.size))
+    rec = np.concatenate([live, junk])
+    dens, rgb = _rgb16_alone(rec, dyadic_palette(3),
+                             flush.alloc_split(N_BINS, cuda), None, cuda)
+    assert float(dens[N_BINS]) == junk.size
+    assert float(dens.double().sum()) == n
+    ref = flush.accumulate_windowed_rgb16_reference(
+        flush.alloc_split(N_BINS, "cpu"), torch.as_tensor(rec),
+        torch.as_tensor(dyadic_palette(3)), N_BINS, 8)
+    assert torch.equal(dens.cpu(), ref[0])
+    assert torch.equal(rgb.cpu()[:N_BINS].view(torch.int16),
+                       ref[1][:N_BINS].view(torch.int16))
 
 
 # records a block of scatter_flush.cu's merged kernel (its kTile)
