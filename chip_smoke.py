@@ -51,11 +51,28 @@ CUDA toolkit.  Phases, each printed on its own line:
               and 2^23 keys, with each pass's device time; times and
               bounds as in phase 3
   7. render   full_feature at 1080p through the backends pallas,
-              pallas_merged and pallas_rgb16 at quality Q: one launch a
+              pallas_merged and pallas_rgb16 at quality Q/2: one launch a
               flush (two for pallas_rgb16), histogram mass == plotted
               samples, a non-black frame
   8. parity   full_feature at 128x128, CUDA against CPU, for every
-              backend besides pallas_win, under 3x the two-seed floor
+              backend besides pallas_win, under 3x the two-seed floor;
+              and a motion-blurred frame (animated_spark, 4 temporal
+              samples, gaussian filter) the same way
+  9. animation  animated_spark with a gaussian temporal filter at 1080p,
+              4 temporal samples a frame at quality Q/2, 3 frames through
+              Renderer.frames and again through frames_overlapped
+              (pallas_win): per frame one win_flush launch a flush, 4 x
+              n_chunks flushes, 18 sort passes each; histogram mass ==
+              sum of weight x plotted count over the samples; frame 0
+              differs from frame 2 and a blurred frame from the still at
+              its time; a gaussian-filtered frame as bright as a
+              box-filtered one within 10%; overlapped frames within one
+              u8 step of the serial ones (win_flush's edge atomics), the
+              two frame loops' wall times taken in turns (serial, overlapped,
+              overlapped, serial), and
+              through pallas_rgb16 (2 frames) bit-identical; one blurred
+              frame each through pallas and pallas_merged; frames go to
+              smoke_out/
 
 Then one JSON line describing each kernel, the nvidia-smi line, and
 last {"ok": true, "device": {...}}.  Any failed check exits non-zero
@@ -66,6 +83,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import itertools
 import json
 import os
 import statistics
@@ -88,6 +106,10 @@ KERNELS = {
 # the backend whose render drives each flush kernel
 RENDER_BACKENDS = {"packed_flush": "pallas", "merged_flush": "pallas_merged",
                    "win_flush_rgb16": "pallas_rgb16"}
+FLUSH_KERNEL = {"pallas_win": "win_flush",
+                **{b: k for k, b in RENDER_BACKENDS.items()}}
+# temporal samples a frame of the animation phase
+ANIM_SAMPLES = 4
 # CUDA kernel launches of each flush kernel in one flush (the sort's
 # passes count under bitonic_sort; the split flush launches its tiles
 # kernel and its resolve kernel)
@@ -714,23 +736,246 @@ def phase_render_backend(torch, flush, tit, Renderer, genome, get_profile,
 
 
 def phase_parity(torch, Renderer, RenderProfile, g, backend="pallas_win",
-                 phase_no=5):
+                 phase_no=5, t=0.0, **blur):
     """CUDA against CPU by distribution at 128x128.  One seed gives both
-    devices the same starting trajectories."""
+    devices the same starting trajectories.  `blur`: the profile fields
+    of a motion-blurred frame."""
     prof = RenderProfile(width=128, height=128, quality=100,
-                         hist_backend=backend, de_enabled=False)
-    h_cu, s_cu = Renderer(g, prof, device="cuda").accumulate(0.0, seed=11)
+                         hist_backend=backend, de_enabled=False, **blur)
+    h_cu, s_cu = Renderer(g, prof, device="cuda").accumulate(t, seed=11)
     cpu = Renderer(g, prof, device="cpu")
-    h_a, _ = cpu.accumulate(0.0, seed=11)
-    h_b, _ = cpu.accumulate(0.0, seed=12)
+    h_a, _ = cpu.accumulate(t, seed=11)
+    h_b, _ = cpu.accumulate(t, seed=12)
     check(bool(torch.isfinite(h_cu).all()), "non-finite histogram")
     floor = tv_distance(h_a, h_b)
     d = tv_distance(h_cu, h_a)
     phase(phase_no, "parity", genome=g.name, backend=backend,
           tv_cuda_vs_cpu=d, tv_cpu_two_seed_floor=floor, limit=3 * floor,
-          plotted=s_cu.plotted_samples)
+          plotted=s_cu.plotted_samples, **blur)
     check(d < 3 * floor, f"{g.name} via {backend}: TV {d} >= 3x floor "
           f"{floor}")
+
+
+def spark(animated_spark, ftype="gaussian"):
+    g = animated_spark()
+    g.temporal_filter_type = ftype
+    return g
+
+
+def reset_launches(flush, tiled_sort):
+    for counts in (flush.LAUNCHES, tiled_sort.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def frame_flushes(r, stats):
+    """Flushes of one frame of Renderer `r`, from its iteration count,
+    checked against temporal samples x chunks a sample."""
+    prof = r.profile
+    per_chunk = r._batch_for(prof.total_iters) * prof.iters_per_chunk
+    flushes = stats.total_iters // per_chunk
+    n_chunks = -(-prof.total_iters // (prof.temporal_samples * per_chunk))
+    check(flushes == prof.temporal_samples * max(1, n_chunks),
+          f"{flushes} flushes a frame, expected {prof.temporal_samples} x "
+          f"{n_chunks}")
+    return flushes, per_chunk
+
+
+def check_frame_launches(flush, tiled_sort, r, stats, frames, what):
+    """`frames` frames of `r` launched its flush kernel once a flush
+    (the split flush twice) and, where the flush sorts, the sort's
+    passes before each.  Returns {kernel: launches}."""
+    name = FLUSH_KERNEL[r.backend]
+    flushes, per_chunk = frame_flushes(r, stats)
+    passes = 0 if r.backend == "pallas" else len(
+        tiled_sort.bitonic_schedule(1 << (per_chunk - 1).bit_length()))
+    got = {name: flush.LAUNCHES[name],
+           "bitonic_sort": tiled_sort.LAUNCHES["bitonic_sort"]}
+    want = {name: frames * flushes * LAUNCHES_PER_FLUSH[name],
+            "bitonic_sort": frames * flushes * passes}
+    check(got == want and got[name] > 0,
+          f"{what}: launches {got}, expected {want}")
+    if not passes:
+        del got["bitonic_sort"]
+    return got
+
+
+def check_weighted_mass(torch, tit, r, t, seed):
+    """One more accumulation of the frame at `t` with every sample's
+    plotted count kept apart: the histogram's mass is the sum of weight
+    x plotted count.  Returns (mass, the (weight, plotted) pairs)."""
+    samples, plain = [], tit.iterate_accumulate
+
+    def recording(*args, **kwargs):
+        out = plain(*args, **kwargs)
+        samples.append((kwargs["weight"], float(out[2])))
+        return out
+    tit.iterate_accumulate = recording
+    try:
+        hist, stats = r.accumulate(t, seed=seed)
+    finally:
+        tit.iterate_accumulate = plain
+    check(bool(torch.isfinite(hist).all()), "non-finite histogram")
+    check(len(samples) == r.profile.temporal_samples,
+          f"{len(samples)} temporal samples accumulated")
+    check([w for w, _ in samples] == [
+        float(w) for w in r._temporal_times(t)[1].astype("float32")],
+        f"sample weights {samples} are not the temporal filter's")
+    mass = float(hist[:-1, 3].double().sum())
+    want = sum(w * n for w, n in samples)
+    check(abs(mass - want) <= 1e-5 * want,
+          f"{r.backend}: histogram mass {mass} != sum of weight x plotted "
+          f"{want}")
+    check(abs(sum(n for _, n in samples) - stats.plotted_samples)
+          <= 1e-6 * stats.plotted_samples, "plotted counts do not add up")
+    return mass, samples
+
+
+def timed_frames(torch, frames):
+    """Drive a frame iterator to its end: (list of (image, stats), wall
+    seconds, synchronised)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = list(frames)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def frame_fields(stats):
+    return {"iterate_s": stats.iterate_s, "filter_s": stats.filter_s,
+            "samples_per_s": stats.samples_per_sec,
+            "plotted_samples": stats.plotted_samples,
+            "total_iters": stats.total_iters}
+
+
+def mean_rgb(img):
+    return float(img[..., :3].mean())
+
+
+def phase_animation(torch, flush, tiled_sort, tit, write_image, Renderer,
+                    animated_spark, get_profile, quality):
+    """Animation at full width (phase 9).  Returns the launches of every
+    kernel while its backend rendered motion-blurred frames."""
+    import numpy as np
+
+    from cuburn_tpu_torch.ops.interp import pack_genome
+    T = ANIM_SAMPLES
+
+    def renderer(backend="pallas_win", ftype="gaussian", samples=T,
+                 frames=3, q=quality):
+        return Renderer(spark(animated_spark, ftype), get_profile(
+            "1080p", quality=q, temporal_samples=samples, fps=4.0,
+            duration=frames / 4.0, hist_backend=backend))
+
+    r = renderer()
+    check(r.backend == "pallas_win" and r.profile.batch == 1 << 17,
+          f"backend {r.backend}, batch {r.profile.batch}")
+    times = r.frame_times()
+    check(len(times) == 3, f"{len(times)} frames, expected 3")
+    # the interpolator's host cost for one frame's samples
+    packed = pack_genome(r.genome, r.device)
+    ts = np.asarray(r._temporal_times(times[1][1])[0], np.float32)
+    eval_ms = medians(torch, {"ms": lambda: packed.eval_params(ts)})["ms"]
+
+    # serial frame loop, the launches read frame by frame
+    launches = dict.fromkeys(KERNELS, 0)
+    serial, serial_s, it = [], 0.0, r.frames(seed=1)
+    for k in range(len(times)):
+        reset_launches(flush, tiled_sort)
+        (frame,), dt = timed_frames(torch, itertools.islice(it, 1))
+        got = check_frame_launches(flush, tiled_sort, r, frame[1], 1,
+                                   f"frame {k} through frames()")
+        for name, n in got.items():
+            launches[name] += n
+        serial.append(frame)
+        serial_s += dt
+    check(next(it, None) is None, "frames() yielded a fourth frame")
+    out_dir = os.path.join(REPO, "smoke_out")
+    os.makedirs(out_dir, exist_ok=True)
+    pngs = []
+    for k, (img, stats) in enumerate(serial):
+        check(img.shape == (1080, 1920, 4), f"frame {k} shape {img.shape}")
+        check(bool(img[..., :3].any()), f"frame {k} is black")
+        check(stats.plotted_samples > 0, f"frame {k} plotted nothing")
+        pngs.append(os.path.join(out_dir, f"chip_smoke_anim_{k}.png"))
+        write_image(pngs[-1], img)
+    check(not np.array_equal(serial[0][0], serial[2][0]),
+          "frame 0 equals frame 2: nothing animates")
+
+    # overlapped frame loop: the same frames, the launches of all three
+    reset_launches(flush, tiled_sort)
+    over, over_s = timed_frames(torch, r.frames_overlapped(seed=1))
+    check(len(over) == 3, f"frames_overlapped yielded {len(over)} frames")
+    check_frame_launches(flush, tiled_sort, r, over[0][1], 3,
+                         "3 frames through frames_overlapped()")
+    differing = []
+    for k, ((a, sa), (b, sb)) in enumerate(zip(serial, over)):
+        d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        check(int(d.max()) <= 1, f"overlapped frame {k} is {int(d.max())} "
+              "u8 steps from the serial one")
+        check(sa.total_iters == sb.total_iters, "iteration counts differ")
+        differing.append(int((d > 0).any(-1).sum()))
+    for name, frames in (("frames", serial), ("frames_overlapped", over)):
+        for k, (_img, stats) in enumerate(frames):
+            phase(9, "animation", loop=name, frame=k, t=times[k][1],
+                  **frame_fields(stats))
+    # the two frame loops once more in the other order, wall time only
+    _again, over_again_s = timed_frames(torch, r.frames_overlapped(seed=1))
+    _again, serial_again_s = timed_frames(torch, r.frames(seed=1))
+    del _again
+
+    # the weighted mass, the still at the same time, the box filter
+    t1 = times[1][1]
+    mass, samples = check_weighted_mass(torch, tit, r, t1, seed=2)
+    still, still_stats = renderer(samples=1).render_frame(t1, seed=2)
+    check(not np.array_equal(still, serial[1][0]),
+          "the motion-blurred frame equals the still at its time")
+    box, _ = renderer(ftype="box").render_frame(t1, seed=2)
+    m_g, m_box = mean_rgb(serial[1][0]), mean_rgb(box)
+    check(abs(m_g - m_box) <= 0.1 * m_box,
+          f"gaussian frame mean {m_g} against box {m_box}: over 10% apart")
+    flushes, per_chunk = frame_flushes(r, serial[0][1])
+    phase(9, "animation", genome="animated_spark", profile="1080p",
+          temporal_filter="gaussian", temporal_samples=T, quality=quality,
+          bins=r.cam.n_bins, backend=r.backend, frames=3,
+          flushes_per_frame=flushes, records_per_flush=per_chunk,
+          launches=launches, serial_s=[serial_s, serial_again_s],
+          overlapped_s=[over_s, over_again_s],
+          eval_params_host_ms=eval_ms, weights=[w for w, _ in samples],
+          mass=mass, plotted=[n for _, n in samples],
+          pixels_differing_overlapped=differing,
+          still=frame_fields(still_stats), mean_rgb_gaussian=m_g,
+          mean_rgb_box=m_box, mean_rgb_still=mean_rgb(still),
+          png=[os.path.relpath(p, REPO) for p in pngs])
+
+    # the split flush sums in a fixed order: overlapped == serial, bit
+    # for bit; the unsorted and the merged flush, one blurred frame each
+    for backend, n_frames, q in (("pallas_rgb16", 2, quality),
+                                 ("pallas", 1, max(quality // 2, 1)),
+                                 ("pallas_merged", 1, max(quality // 2, 1))):
+        rb = renderer(backend, frames=n_frames, q=q)
+        reset_launches(flush, tiled_sort)
+        a, a_s = timed_frames(torch, rb.frames(seed=1))
+        check(len(a) == n_frames, f"{backend}: {len(a)} frames")
+        got = check_frame_launches(flush, tiled_sort, rb, a[0][1], n_frames,
+                                   f"{n_frames} frames through {backend}")
+        launches[FLUSH_KERNEL[backend]] += got[FLUSH_KERNEL[backend]]
+        fields = {}
+        if backend == "pallas_rgb16":
+            b, b_s = timed_frames(torch, rb.frames_overlapped(seed=1))
+            for k, ((x, _), (y, _)) in enumerate(zip(a, b)):
+                check(np.array_equal(x, y), f"{backend}: overlapped frame "
+                      f"{k} differs from the serial one")
+            fields = {"overlapped_s": b_s, "overlapped_equals_serial": True}
+        mass, samples = check_weighted_mass(torch, tit, rb,
+                                            rb.frame_times()[0][1], seed=2)
+        check(bool(a[0][0][..., :3].any()), f"{backend}: a black frame")
+        phase(9, "animation", backend=backend, frames=n_frames, quality=q,
+              launches=got, serial_s=a_s, **fields, mass=mass,
+              iterate_s=[s.iterate_s for _, s in a])
+    for name, n in launches.items():
+        check(n > 0, f"the animation launched no {name}")
+    return launches
 
 
 def build_all(build):
@@ -755,7 +1000,8 @@ def main(argv=None) -> int:
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 2
     from cuburn_tpu_torch.kernels import build
-    from cuburn_tpu_torch.models import full_feature, sierpinski
+    from cuburn_tpu_torch.models import (animated_spark, full_feature,
+                                         sierpinski)
     from cuburn_tpu_torch.ops import flush, sort, tiled_sort
     from cuburn_tpu_torch.ops import histogram as thist
     from cuburn_tpu_torch.ops import iterate as tit
@@ -802,18 +1048,25 @@ def main(argv=None) -> int:
     times["bitonic_sort"], errs["bitonic_sort"] = phase_sort(
         torch, tiled_sort)
     del main_r
+    half = max(args.quality // 2, 1)
     for name in RENDER_BACKENDS:
         launches[name] = phase_render_backend(
             torch, flush, tit, Renderer, full_feature(), get_profile, name,
-            args.quality)
+            half)
     for backend in ("pallas", "pallas_merged", "pallas_rgb16", "scatter",
                     "scatter_sorted", "sortcum"):
         phase_parity(torch, Renderer, RenderProfile, full_feature(),
                      backend, phase_no=8)
+    phase_parity(torch, Renderer, RenderProfile, spark(animated_spark),
+                 phase_no=8, t=0.5, temporal_samples=ANIM_SAMPLES, fps=4.0)
+    anim_launches = phase_animation(
+        torch, flush, tiled_sort, tit, write_image, Renderer,
+        animated_spark, get_profile, half)
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu",
         "replaces": replaces, "launches": launches[name],
+        "launches_animation": anim_launches[name],
         "max_abs_err": errs[name], "ms": times[name]["ms"],
         "device_ms": times[name]["device_ms"],
         "plain_ms": times[name]["plain_ms"],

@@ -1,10 +1,14 @@
-"""`cuburn-tpu-torch`: render a still frame with the PyTorch/CUDA port.
+"""`cuburn-tpu-torch`: render stills and animations with the
+PyTorch/CUDA port.
 
-The stills path of `cuburn_tpu/main.py`, with its own copy of that
-module's argument parser, genome loader and metrics records:
+The one-device paths of `cuburn_tpu/main.py`, with its own copy of
+that module's argument parser, genome loader and metrics records:
 
     cuburn-tpu-torch gallery:full_feature -o out.png --profile 1080p
     cuburn-tpu-torch genome.flam3 -o out.png --cpu
+    cuburn-tpu-torch gallery:animated_spark --animate -o a.y4m \
+        --fps 24 --duration 2 --temporal-samples 4
+    cuburn-tpu-torch a.flam3 --blend b.flam3 --animate -o edge.mp4
 
 The render runs on CUDA unless `--cpu` asks for the CPU; without a GPU
 the CUDA default fails instead of falling back.
@@ -14,8 +18,10 @@ Flags for paths the port does not have yet are refused.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
+import time
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -168,19 +174,72 @@ def load_genome(spec: str, index: int, angle_units: str = ""):
 
 def _refuse_unported(args) -> None:
     refused = [
-        ("--animate", args.animate),
         ("--devices", args.devices is not None and args.devices > 1),
         ("--reduce-scatter", args.reduce_scatter),
         ("--stripes", args.stripes > 1),
         ("--bands", args.bands > 1),
-        ("--blend", args.blend is not None),
         ("--trace-dir", args.trace_dir is not None),
     ]
     for flag, used in refused:
         if used:
             raise SystemExit(
-                f"cuburn-tpu-torch: {flag} is not ported yet (stills on "
-                "one device only; see ROADMAP.md queue A)")
+                f"cuburn-tpu-torch: {flag} is not ported yet (whole "
+                "frames on one device only; see ROADMAP.md queue A)")
+
+
+def _animate(args, renderer, sequence, output_mod) -> None:
+    """Render the genome's time range (or every edge of a keyframe
+    sequence) into a video sink."""
+    prof = renderer.profile
+    sink = output_mod.make_video_sink(
+        args.output, prof.width, prof.height, prof.fps)
+    n = 0
+    t0 = time.time()
+
+    def run_frames(r, seed):
+        # the overlapped frame loop is the default: the same images, and
+        # the host encodes frame N-1 while the device works on N
+        return r.frames_partitioned(seed=seed,
+                                    overlap=not args.no_overlap)
+
+    def frame_iter():
+        if sequence is None:
+            yield from run_frames(renderer, args.seed)
+            return
+        total_len = sequence[-1][2] - sequence[0][1]
+        total_s = prof.duration or 2.0 * len(sequence)
+        for k, (edge, s, e) in enumerate(sequence):
+            # segment wall time proportional to its keyframe span
+            # (flam3 `time` attributes set the spacing)
+            seg_prof = dataclasses.replace(
+                prof, duration=total_s * (e - s) / total_len)
+            frames = run_frames(
+                type(renderer)(edge, seg_prof, device=renderer.device),
+                args.seed + k)
+            if k > 0:
+                # each edge spans [0, 1] inclusive and edge k's t=1
+                # pose is edge k+1's t=0 pose: dropping the first frame
+                # of every later segment avoids one doubled frame per
+                # interior keyframe
+                next(frames, None)
+            yield from frames
+
+    try:
+        for img, stats in frame_iter():
+            sink.write_frame(img)
+            n += 1
+            if args.stats:
+                print(f"frame {n}: {stats.samples_per_sec/1e6:.1f} "
+                      f"Msamples/s, retention "
+                      f"{stats.retention:.2f}", file=sys.stderr)
+            if args.metrics_json:
+                _append_metrics(args.metrics_json,
+                                _stats_record(n, None, stats))
+    finally:
+        sink.close()
+    dt = time.time() - t0
+    print(f"wrote {n} frames to {args.output} in {dt:.1f}s "
+          f"({n / max(dt, 1e-9):.2f} fps)")
 
 
 def main(argv=None) -> int:
@@ -189,9 +248,35 @@ def main(argv=None) -> int:
 
     genome = load_genome(args.genome, args.flame_index,
                          angle_units=args.cam_angle_units)
+    sequence = None
+    if args.blend:
+        from cuburn_tpu_torch.genome.blend import blend_genomes
+        target = load_genome(args.blend, 0,
+                             angle_units=args.cam_angle_units)
+        genome = blend_genomes(genome, target, spin=args.blend_spin)
+    elif (args.animate and not args.convert
+          and not args.genome.startswith(("gallery:", "random:"))):
+        # multi-flame file + --animate = keyframe sequence (the
+        # flam3-animate workflow): blend consecutive stills into edges
+        from cuburn_tpu_torch.genome.blend import blend_sequence
+        from cuburn_tpu_torch.genome.convert import load_genomes
+        all_genomes = load_genomes(args.genome,
+                                   angle_units=args.cam_angle_units)
+        if len(all_genomes) > 1:
+            sequence = blend_sequence(all_genomes, spin=args.blend_spin,
+                                      loops=args.loops,
+                                      harmonize=not args.no_harmonize)
     if args.convert:
         print(genome.to_json())
         return 0
+
+    if args.animate and (args.save_hist or args.resume_hist
+                         or args.time):
+        # these drive the still path only; silently ignoring a
+        # checkpoint request is worse than refusing it
+        raise SystemExit(
+            "--save-hist/--resume-hist/--time apply to stills; "
+            "they have no effect with --animate")
 
     import numpy as np
 
@@ -207,6 +292,10 @@ def main(argv=None) -> int:
             overrides[field] = v
     if args.temporal_samples is not None:
         overrides["temporal_samples"] = args.temporal_samples
+    if args.fps is not None:
+        overrides["fps"] = args.fps
+    if args.duration is not None:
+        overrides["duration"] = args.duration
     if args.hist_backend is not None:
         overrides["hist_backend"] = args.hist_backend
     if args.no_de:
@@ -217,6 +306,9 @@ def main(argv=None) -> int:
     except RuntimeError as e:       # no GPU: say so, do not fall back
         raise SystemExit(f"cuburn-tpu-torch: {e}")
     renderer = Renderer(genome, prof, device=device)
+    if args.animate:
+        _animate(args, renderer, sequence, output_mod)
+        return 0
 
     hist0 = None
     if args.resume_hist:

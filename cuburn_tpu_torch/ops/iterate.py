@@ -29,6 +29,7 @@ from cuburn_tpu_torch.ops import flush as flush_mod
 from cuburn_tpu_torch.ops import histogram as hist_mod
 from cuburn_tpu_torch.ops import rng as rng_mod
 from cuburn_tpu_torch.ops.camera import CameraSpec, project, project_3d
+from cuburn_tpu_torch.ops.interp import sample_params
 from cuburn_tpu_torch.ops.xform import (apply_final_xform, apply_xforms,
                                         build_xform_table,
                                         select_and_fetch)
@@ -252,9 +253,15 @@ def record_bits(key: StructureKey, cam: CameraSpec, backend: str,
 def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
                        params, cdf_rows, state: IterState, hist, ppu,
                        n_chunks: int, iters_per_flush: int, fuse: int,
-                       op_bits: int = 0):
+                       op_bits: int = 0, weight=None):
     """Advance n_chunks * iters_per_flush steps, flushing packed
     records into `hist` (updated in place) once per chunk.
+
+    `weight` (a Python float, default 1) scales every record's
+    contribution: the temporal-filter weight of this genome evaluation
+    within the shutter interval.  It reaches the CUDA flushes as a
+    kernel argument, so a tensor here would cost a device sync per
+    flush.  The plotted count stays unweighted.
 
     `backend` is a packed-record flush of ops/flush.py (`pallas`,
     `pallas_merged`, `pallas_win`, or `pallas_rgb16` on the split
@@ -273,8 +280,11 @@ def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
     else:
         scatter = hist_mod.get_backend(backend)
 
-        def flush(hist, recs, palette_hi, n_bins, bits):
-            return scatter(hist, *unpack_records(bits, palette_hi, recs))
+        def flush(hist, recs, palette_hi, n_bins, bits, weight=None):
+            addrs, rgbas = unpack_records(bits, palette_hi, recs)
+            if weight is not None:
+                rgbas = rgbas * weight
+            return scatter(hist, addrs, rgbas)
 
     palette_hi = expand_palette(params.palette, cbits)
     if op_bits:
@@ -294,10 +304,43 @@ def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
                 # the selected xform id splices between address and color
                 rec = rec | (state.last_xf << cbits)
             recs[k] = rec
-        hist = flush(hist, recs, palette_hi, cam.n_bins, tot_bits)
+        hist = flush(hist, recs, palette_hi, cam.n_bins, tot_bits, weight)
         # per-chunk count is exact in int64; the running total is f32
         plotted = plotted + ((recs >> tot_bits) != cam.junk_bin).sum() \
             .to(torch.float32)
+    return state, hist, plotted
+
+
+def iterate_accumulate_temporal(key: StructureKey, cam: CameraSpec,
+                                backend: str, params_T,
+                                state: IterState, hist, ppu_T,
+                                n_chunks_per_sample: int,
+                                iters_per_flush: int, fuse: int,
+                                weights_T=None, op_bits: int = 0):
+    """Accumulate the T temporal samples of a motion-blurred frame into
+    `hist` (updated in place), sample after sample.
+
+    `params_T` is `PackedGenome.eval_params`' result (every leaf with a
+    leading T axis) and `ppu_T` the (T,) scale; each sample builds its
+    selection CDF, palette and xform table anew.  Trajectories carry
+    over between samples (the attractor moves smoothly within a shutter
+    interval; no re-fuse).  `weights_T` are the temporal filter's
+    weights as Python floats (render.temporal_filter_weights): sample
+    k's contribution is scaled by weights_T[k].  `pallas_rgb16` rounds
+    its rgb to bf16 once per touched bin per flush, whether a frame
+    has T flush groups or one (the JAX package's contract too).
+    Returns (new_state, hist, plotted), plotted unweighted."""
+    n_samples = ppu_T.shape[0]
+    if weights_T is None:
+        weights_T = [None] * n_samples
+    plotted = torch.zeros((), dtype=torch.float32, device=state.x.device)
+    for k in range(n_samples):
+        params_k = sample_params(params_T, k)
+        state, hist, n = iterate_accumulate(
+            key, cam, backend, params_k, xform_cdf_rows(params_k), state,
+            hist, ppu_T[k], n_chunks_per_sample, iters_per_flush, fuse,
+            op_bits=op_bits, weight=weights_T[k])
+        plotted = plotted + n
     return state, hist, plotted
 
 

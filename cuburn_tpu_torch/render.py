@@ -1,10 +1,13 @@
-"""The frame pipeline: genome + profile -> a rendered still.
+"""The frame pipeline: genome + profile -> rendered frames.
 
 Port of `cuburn_tpu/render.py` for one device.  Per frame:
 
   evaluate the genome at the frame time                 [host]
+    (motion blur: at the T shutter times, by the packed-knot
+    interpolator of ops/interp.py on the device)
   chaos game in chunks, each chunk flushed into the histogram
-    (`iterate_accumulate`; the flush is the CUDA kernel on a GPU)
+    (`iterate_accumulate`; the flush is the CUDA kernel on a GPU;
+    a temporal sample's flushes carry its filter weight)
   logscale -> density estimation -> downsample -> colorclip -> u8
   u8 readback                                           [host]
 
@@ -21,7 +24,7 @@ import os
 import time
 import warnings
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +34,7 @@ from cuburn_tpu_torch.genome.specs import Genome
 from cuburn_tpu_torch.ops import de as de_mod
 from cuburn_tpu_torch.ops import histogram as hist_mod
 from cuburn_tpu_torch.ops.camera import CameraSpec
+from cuburn_tpu_torch.ops.interp import pack_genome
 from cuburn_tpu_torch.ops.filtering import (colorclip, downsample,
                                             logscale,
                                             spatial_filter_taps, to_u8)
@@ -38,6 +42,7 @@ from cuburn_tpu_torch.ops.iterate import (PACKED_FLUSHES, color_bits_for,
                                           hist_alloc_for, hist_to_layout,
                                           hist_to_logical, init_state,
                                           iterate_accumulate,
+                                          iterate_accumulate_temporal,
                                           opacity_bits_for,
                                           xform_cdf_rows)
 from cuburn_tpu_torch.ops.variations import VARIATION_IMPLS
@@ -62,6 +67,42 @@ def _spline_range_max(sp, time_range) -> float:
         return float(sp(t0))
     ts = np.linspace(t0, t1, 33)
     return float(np.max(sp.evaluate(ts)))
+
+
+def temporal_filter_weights(n: int, ftype: str = "box",
+                            width: float = 1.0,
+                            filter_exp: float = 0.0):
+    """flam3's create_temporal_filter (flam3.c): per-temporal-sample
+    shutter offsets and contribution weights.
+
+    Returns (deltas (n,), weights (n,), sumfilt):
+      deltas   -- sample times in frame-interval units, centered on the
+                 frame time: (i/n - 0.5) * width  (flam3's exact rule)
+      weights  -- filter values normalized so max == 1; each sample's
+                 histogram contribution is scaled by its weight
+      sumfilt  -- mean weight: the factor flam3 folds into k2 so overall
+                 brightness is independent of the filter shape
+    """
+    i = np.arange(n, dtype=np.float64)
+    deltas = (i / n - 0.5) * width
+    if n <= 1:
+        return np.zeros(1), np.ones(1), 1.0
+    if ftype in ("gaussian", "gauss"):
+        half = n / 2.0
+        # flam3 evaluates its gaussian spatial kernel (support 1.5,
+        # exp(-2x^2)) at 1.5*|i-half|/half; the sqrt(2/pi) prefactor
+        # cancels under max-normalization
+        x = 1.5 * np.abs(i - half) / half
+        w = np.exp(-2.0 * x * x)
+    elif ftype == "exp":
+        slpx = (i + 1.0) / n if filter_exp >= 0 else (n - i) / n
+        w = slpx ** abs(filter_exp)
+    elif ftype == "box":
+        w = np.ones(n)
+    else:
+        raise ValueError(f"unknown temporal filter type {ftype!r}")
+    w = w / w.max()
+    return deltas, w, float(w.mean())
 
 
 @dataclass
@@ -129,8 +170,8 @@ def _with_alpha(img_np: np.ndarray) -> np.ndarray:
 
 
 class Renderer:
-    """Renders still frames of one genome under one profile on one
-    device.
+    """Renders stills and animations of one genome under one profile
+    on one device.
 
     `device` defaults to CUDA and raises when there is no GPU; the
     CPU runs only when asked for by name ("cpu").  The histogram
@@ -142,11 +183,8 @@ class Renderer:
     def __init__(self, genome: Genome, profile: RenderProfile,
                  device: torch.device | str | None = None):
         self.device = resolve_device(device)
-        if profile.temporal_samples > 1:
-            raise NotImplementedError(
-                "motion blur (temporal_samples > 1) is not ported yet "
-                "(ROADMAP.md queue A: iterate_accumulate_temporal)")
         self.genome = genome
+        self._packed_genome = None      # built at the first blurred frame
         self.profile = profile
         self.key = genome.structure_key()
         used = set(self.key.variations) | set(
@@ -270,11 +308,18 @@ class Renderer:
             hist = hist_to_layout(self.backend, hist)
         else:
             hist = hist_alloc_for(self.backend, cam.n_bins, self.device)
-        (t_s,), _weights, _sumfilt = self._temporal_times(t)
-        params = params_from_genome(self.genome.eval_at(t_s),
-                                    self.device)
-        return self._accumulate_sample(params, hist, seed=eff_seed,
-                                       iters=prof.total_iters)
+        ts_times, ts_weights, _sumfilt = self._temporal_times(t)
+        if len(ts_times) == 1:
+            params = params_from_genome(
+                self.genome.eval_at(ts_times[0]), self.device)
+            return self._accumulate_sample(params, hist, seed=eff_seed,
+                                           iters=prof.total_iters)
+        # motion blur: parameters of every temporal sample from the
+        # packed-knot interpolator, contributions weighted by the
+        # flam3 temporal filter
+        return self._accumulate_temporal(
+            ts_times, ts_weights, hist, seed=eff_seed,
+            iters_per_sample=prof.total_iters / len(ts_times))
 
     def finalize_frame(self, hist, t: float = 0.0,
                        stats: Optional[FrameStats] = None) -> np.ndarray:
@@ -312,22 +357,55 @@ class Renderer:
         return (self.profile.de_enabled and
                 float(host_params.estimator_radius) > 0.0)
 
+    def frame_dt(self) -> float:
+        """The per-frame genome-time step.  It matches frame_times()'s
+        stepping, so the motion-blur shutter covers one inter-frame
+        interval for any time_range span or explicit duration."""
+        t0, t1 = self.genome.time_range
+        n_frames = self._n_frames()
+        if n_frames > 1:
+            return (t1 - t0) / (n_frames - 1)
+        # single frame: no inter-frame step exists; use the whole range
+        # (or one nominal frame at fps for a still node)
+        return (t1 - t0) if t1 > t0 else 1.0 / self.profile.fps
+
+    def _n_frames(self) -> int:
+        """Frames of the whole animation before `skip`; a sub-frame
+        duration still renders one frame."""
+        prof = self.profile
+        t0, t1 = self.genome.time_range
+        span = prof.duration if prof.duration is not None else t1 - t0
+        return max(1, int(round(span * prof.fps)))
+
     def _temporal_times(self, t: float):
-        """Genome evaluation times + temporal-filter weights for one
-        frame: a single sample at t (motion blur is not ported).
-        Returns (times, weights (n,), sumfilt)."""
-        return [t], np.ones(1), 1.0
+        """Genome evaluation times + flam3 temporal-filter weights for
+        one frame's shutter.  Returns (times, weights (n,), sumfilt)."""
+        n = self.profile.temporal_samples
+        g = self.genome
+        if n <= 1:
+            return [t], np.ones(1), 1.0
+        deltas, weights, sumfilt = temporal_filter_weights(
+            n, g.temporal_filter_type,
+            float(g.temporal_filter_width(t)),
+            float(g.temporal_filter_exp(t)))
+        dt = self.frame_dt()
+        return [t + float(d) * dt for d in deltas], weights, sumfilt
+
+    def _batch_for(self, iters: float) -> int:
+        """The trajectory batch, capped so every point lives >= ~8x
+        fuse iterations of the frame's `iters`; otherwise warmup
+        dominates and retention craters."""
+        batch = self.profile.batch
+        min_life = 8 * max(self.profile.fuse, 1)
+        while batch > 1024 and iters / batch < min_life:
+            batch //= 2
+        return batch
 
     def _accumulate_sample(self, params, hist, seed: int, iters: float):
         """Run the chaos game for ~`iters` iterations into hist."""
         prof, cam = self.profile, self.cam
         cdf_rows = xform_cdf_rows(params)
-        # cap the trajectory batch so every point lives >= ~8x fuse
-        # iterations; otherwise warmup dominates and retention craters
-        batch = prof.batch
-        min_life = 8 * max(prof.fuse, 1)
-        while batch > 1024 and iters / batch < min_life:
-            batch //= 2
+        batch = self._batch_for(iters)
         state = init_state(torch.Generator().manual_seed(seed), batch,
                            self.device)
         ppu = params.ppu * float(np.float32(
@@ -339,3 +417,134 @@ class Renderer:
             ppu, n_chunks, prof.iters_per_chunk, prof.fuse,
             op_bits=self.op_bits)
         return hist, plotted, n_chunks * per_chunk
+
+    def _accumulate_temporal(self, ts_times, ts_weights, hist,
+                             seed: int, iters_per_sample: float):
+        """Run the chaos game for ~`iters_per_sample` iterations at each
+        of the T shutter times into hist, each sample's flushes scaled
+        by its temporal-filter weight."""
+        prof, cam = self.profile, self.cam
+        if self._packed_genome is None:
+            self._packed_genome = pack_genome(self.genome, self.device)
+        params_T = self._packed_genome.eval_params(
+            np.asarray(ts_times, np.float32))
+        ppu_T = params_T.ppu * float(np.float32(
+            prof.width / self.genome.size[0]))
+        T = len(ts_times)
+        # the batch is sized on the frame's iterations, not one
+        # sample's: the trajectories carry over between samples
+        batch = self._batch_for(iters_per_sample * T)
+        state = init_state(torch.Generator().manual_seed(seed), batch,
+                           self.device)
+        per_chunk = batch * prof.iters_per_chunk
+        n_chunks = max(1, int(np.ceil(iters_per_sample / per_chunk)))
+        # Python floats: a flush takes its weight as a kernel argument
+        weights = [float(w) for w in np.asarray(ts_weights, np.float32)]
+        _state, hist, plotted = iterate_accumulate_temporal(
+            self.key, cam, self.backend, params_T, state, hist, ppu_T,
+            n_chunks, prof.iters_per_chunk, prof.fuse,
+            weights_T=weights, op_bits=self.op_bits)
+        return hist, plotted, n_chunks * per_chunk * T
+
+    # -- animation -------------------------------------------------------
+
+    def frame_times(self):
+        """(frame_index, genome_time) pairs frames() steps through
+        (profile fps/skip over the genome's time range).  The index is
+        the unskipped frame number, so a skip>1 preview renders the
+        exact frames (same per-frame seed) of the full render."""
+        t0, t1 = self.genome.time_range
+        n_frames = self._n_frames()
+        return [(i, t0 + (t1 - t0) * (i / max(n_frames - 1, 1))
+                 if n_frames > 1 else t0)
+                for i in range(0, n_frames, self.profile.skip)]
+
+    def frames(self, seed: int = 0) -> Iterator[Tuple[np.ndarray,
+                                                      FrameStats]]:
+        """Yield (image, stats) across the genome's time range at
+        profile fps, one frame finished before the next begins."""
+        return self.frames_partitioned(seed=seed)
+
+    def frames_overlapped(self, seed: int = 0
+                          ) -> Iterator[Tuple[np.ndarray, FrameStats]]:
+        """frames() with frame N's launches queued before frame N-1 is
+        read back, so the host's wait for N-1's image and its encode
+        run while the device works on N.
+
+        Everything runs on the current stream.  A plain `.cpu()` of
+        frame N-1 made after frame N's launches would wait for frame
+        N too, so each frame's device-to-host copy (into pinned memory)
+        and a CUDA event are queued right behind its own launches, and
+        the yield waits on that event only.  On the CPU the same calls
+        run in the same order with no events.
+
+        Images are those of frames(): the same kernels on the same
+        inputs in the same order.  They are bit-identical where the
+        flush is (every backend on the CPU, `pallas_rgb16` on the
+        card); the float atomics of the other CUDA flushes may round a
+        sum's last bit differently between any two runs.  FrameStats
+        differ: iterate_s is the
+        dispatch-to-dispatch wall time, what an encoder waits for a
+        frame, and filter_s the wait for the readback alone."""
+        pending = None
+        t_prev = time.perf_counter()
+        for i, t in self.frame_times():
+            hist, n_plot, n_iter = self.accumulate_async(t, seed + i)
+            logical = hist_to_logical(self.backend, hist,
+                                      self.cam.n_bins)
+            img_dev = self.finalize_frame_device(logical, t)
+            queued = self._queue_readback(img_dev, n_plot) + (n_iter,)
+            now = time.perf_counter()
+            if pending is not None:
+                yield self._resolve_pending(pending, now - t_prev)
+            t_prev = now
+            pending = queued
+        if pending is not None:
+            yield self._resolve_pending(
+                pending, time.perf_counter() - t_prev)
+
+    def _queue_readback(self, img_dev, n_plot):
+        """Queue the copies of a frame's image and plotted count to the
+        host behind the frame's launches.  Returns (image, count,
+        event): pinned host tensors that are valid once the event has
+        passed, or the CPU tensors themselves and no event."""
+        if self.device.type != "cuda":
+            return img_dev, n_plot, None
+        host = [torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                .copy_(v, non_blocking=True) for v in (img_dev, n_plot)]
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return host[0], host[1], event
+
+    @staticmethod
+    def _resolve_pending(pending, wall_s: float):
+        img_host, n_plot, event, n_iter = pending
+        stats = FrameStats()
+        t1 = time.perf_counter()
+        if event is not None:
+            event.synchronize()
+        img = img_host.numpy()
+        # an RGBA frame is copied out of the pinned buffer, which the
+        # allocator hands to a later frame
+        img = _with_alpha(img) if img.shape[-1] == 3 else img.copy()
+        stats.filter_s = time.perf_counter() - t1
+        stats.plotted_samples = int(n_plot)
+        stats.total_iters = int(n_iter)
+        stats.iterate_s = wall_s
+        return img, stats
+
+    def frames_partitioned(self, seed: int = 0, n_stripes: int = 0,
+                           n_bands: int = 0, overlap: bool = False
+                           ) -> Iterator[Tuple[np.ndarray, FrameStats]]:
+        """frames(), or with `overlap` frames_overlapped() (the same
+        images).  Striped accumulation and banded filtering are not
+        ported: asking for either raises, here and not at the first
+        frame."""
+        if (n_stripes and n_stripes > 1) or (n_bands and n_bands > 1):
+            raise NotImplementedError(
+                "striped accumulation and banded filtering are not "
+                "ported yet (ROADMAP.md queue A item 11)")
+        if overlap:
+            return self.frames_overlapped(seed=seed)
+        return (self.render_frame(t, seed=seed + i)
+                for i, t in self.frame_times())

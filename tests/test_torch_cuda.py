@@ -11,7 +11,11 @@ of the bin's density otherwise; the split flush's rgb within one bf16
 ulp of its plain version; the tiled sort equal to torch.sort, and the
 sort of every sorted flush on the card; a render
 on the GPU and on the CPU from the same seed (the same starting
-trajectories) agree by TV distance under the CPU's two-seed floor.
+trajectories) agree by TV distance under the CPU's two-seed floor, a
+motion-blurred one too; every flush at a gaussian temporal filter's
+weights (0.011, 0.325) from a nonzero histogram within 1e-5 of the
+bin's density; overlapped frames equal serial ones bit for bit through
+the split flush.
 """
 
 import numpy as np
@@ -22,7 +26,8 @@ torch.set_num_threads(1)
 
 from cuburn_tpu_torch import render as trender  # noqa: E402
 from cuburn_tpu_torch.kernels import build  # noqa: E402
-from cuburn_tpu_torch.models import full_feature, sierpinski  # noqa: E402
+from cuburn_tpu_torch.models import (animated_spark, full_feature,  # noqa: E402
+                                     sierpinski)
 from cuburn_tpu_torch.ops import flush  # noqa: E402
 from cuburn_tpu_torch.ops import histogram as thist  # noqa: E402
 from cuburn_tpu_torch.ops import tiled_sort  # noqa: E402
@@ -590,3 +595,145 @@ def test_render_matches_cpu_by_distribution(cuda, genome, backend):
     a, b, g = density("cpu", 3), density("cpu", 4), density(cuda, 3)
     floor = 0.5 * float((a - b).abs().sum())
     assert 0.5 * float((g - a).abs().sum()) < floor
+
+
+# -- animation: weighted flushes, temporal samples, the frame loops --------
+
+# the outer weights of a 4-sample gaussian temporal filter
+TEMPORAL_WEIGHTS = (0.011, 0.325)
+
+
+def _nonzero_start(seed):
+    rs = np.random.RandomState(seed)
+    start = rs.rand(N_BINS + 1, 4).astype(np.float32) * 50.0
+    start[:, 3] = rs.randint(0, 1000, N_BINS + 1)
+    return start
+
+
+@pytest.mark.parametrize("case", SCATTER_CASES)
+@pytest.mark.parametrize("backend", sorted(FLUSHES))
+@pytest.mark.parametrize("weight", TEMPORAL_WEIGHTS)
+def test_weighted_flush_from_nonzero_histogram(cuda, backend, case, weight):
+    """A temporal sample's flush: weight well under 1 into a histogram
+    that earlier samples filled.  Every channel of the real bins within
+    1e-5 of the bin's density, against the float64 sums and against the
+    plain version.  Where one bin takes a run of thousands of equal
+    records, the plain version adds them one by one in float32 and
+    every add rounds the same way: it is held to the float64 sums
+    within that sum's worst case, half an ulp a record, there."""
+    kernel, plain, name = FLUSHES[backend]
+    rec = scatter_records(case, N_BINS)
+    pal = np.random.RandomState(21).rand(256, 3).astype(np.float32)
+    start = _nonzero_start(22)
+    before = flush.LAUNCHES[name]
+    got = kernel(torch.as_tensor(start, device=cuda),
+                 torch.as_tensor(rec, device=cuda),
+                 torch.as_tensor(pal, device=cuda), N_BINS, 8,
+                 weight=weight).cpu().numpy()
+    assert flush.LAUNCHES[name] == before + 1
+    ref = plain(torch.as_tensor(start.copy()), torch.as_tensor(rec),
+                torch.as_tensor(pal), N_BINS, 8, weight=weight).numpy()
+    exact = start.astype(np.float64)
+    pal4 = np.concatenate([pal, np.ones((256, 1), np.float32)], axis=1)
+    np.add.at(exact, np.minimum(rec >> 8, N_BINS),
+              np.float64(np.float32(weight)) * pal4[rec & 255])
+    bound = 1e-5 * np.maximum(exact[:N_BINS, 3:4], 1.0)
+    assert (np.abs(got[:N_BINS] - exact[:N_BINS]) <= bound).all()
+    long_run = case in ("run_across_three_tiles", "all_equal")
+    sequential = rec.size * 2.0 ** -24 * np.abs(exact[:N_BINS]) * long_run
+    assert (np.abs(ref[:N_BINS] - exact[:N_BINS])
+            <= bound + sequential).all()
+    if not long_run:
+        assert (np.abs(got[:N_BINS] - ref[:N_BINS]) <= bound).all()
+    assert np.abs(ref - start).sum() > 0
+
+
+@pytest.mark.parametrize("case", SCATTER_CASES)
+@pytest.mark.parametrize("weight", TEMPORAL_WEIGHTS)
+def test_weighted_rgb16_flush_from_nonzero_histogram(cuda, case, weight):
+    """The split flush at a temporal sample's weight: density within
+    1e-5 of itself, rgb within one bf16 ulp of the plain version."""
+    rec = scatter_records(case, N_BINS)
+    pal = np.random.RandomState(23).rand(256, 3).astype(np.float32)
+    dg, rg = flush.accumulate_windowed_rgb16(
+        _split_start(6, cuda), torch.as_tensor(rec, device=cuda),
+        torch.as_tensor(pal, device=cuda), N_BINS, 8, weight=weight)
+    dr, rr = flush.accumulate_windowed_rgb16_reference(
+        _split_start(6, "cpu"), torch.as_tensor(rec), torch.as_tensor(pal),
+        N_BINS, 8, weight=weight)
+    dg, rg = dg.cpu()[:N_BINS], rg.cpu()[:N_BINS].float()
+    dr, rr = dr[:N_BINS], rr[:N_BINS].float()
+    assert bool(((dg - dr).abs() <= 1e-5 * dr.clamp(min=1.0)).all())
+    ulp = torch.finfo(torch.bfloat16).eps * rr.abs().clamp(
+        min=torch.finfo(torch.bfloat16).tiny)
+    assert bool(((rg - rr).abs() <= ulp).all())
+
+
+def _spark(ftype="gaussian"):
+    g = animated_spark()
+    g.temporal_filter_type = ftype
+    return g
+
+
+@pytest.mark.parametrize("backend", ["pallas_win", "pallas",
+                                     "pallas_merged", "pallas_rgb16"])
+def test_temporal_accumulate_matches_cpu_by_distribution(cuda, backend):
+    """A T = 3 gaussian frame: the interpolator and the weighted flushes
+    on the card against the CPU path from the same seed."""
+    prof = RenderProfile(width=64, height=64, quality=100, batch=4096,
+                         hist_backend=backend, de_enabled=False,
+                         temporal_samples=3, fps=4.0)
+    name = {**{b: n for b, (_k, _p, n) in FLUSHES.items()},
+            "pallas_rgb16": "win_flush_rgb16"}[backend]
+
+    def run(device, seed):
+        r = trender.Renderer(_spark(), prof, device=device)
+        return (*r.accumulate(0.5, seed=seed), r)
+
+    def density(h):
+        d = h[:-1, 3].double().cpu()
+        return d / d.sum()
+    flush.LAUNCHES[name] = 0
+    hg, sg, r = run(cuda, 3)
+    per_chunk = r._batch_for(prof.total_iters) * r.profile.iters_per_chunk
+    flushes = sg.total_iters // per_chunk
+    assert flushes % 3 == 0
+    assert flush.LAUNCHES[name] == flushes * (2 if name.endswith("16") else 1)
+    (ha, sa, _), (hb, _, _) = run("cpu", 3), run("cpu", 4)
+    assert sg.total_iters == sa.total_iters
+    a, b, g = density(ha), density(hb), density(hg)
+    floor = 0.5 * float((a - b).abs().sum())
+    assert 0.5 * float((g - a).abs().sum()) < floor
+    # the weighted mass, not the plotted count
+    mass = float(hg[:-1, 3].double().sum())
+    assert mass < 0.75 * sg.plotted_samples
+    assert mass == pytest.approx(float(ha[:-1, 3].double().sum()), rel=0.02)
+
+
+def test_overlapped_frames_equal_serial_on_the_card(cuda):
+    """Through the split flush, whose sums have a fixed order, the
+    frames of `frames_overlapped` are those of `frames` bit for bit."""
+    prof = RenderProfile(width=128, height=96, quality=30, batch=8192,
+                         hist_backend="pallas_rgb16", temporal_samples=2,
+                         fps=4.0, duration=0.75)
+    r = trender.Renderer(_spark(), prof)
+    serial = list(r.frames(seed=2))
+    over = list(r.frames_overlapped(seed=2))
+    assert len(serial) == len(over) == 3
+    for (a, sa), (b, sb) in zip(serial, over):
+        np.testing.assert_array_equal(a, b)
+        assert sa.plotted_samples == sb.plotted_samples > 0
+    assert not np.array_equal(serial[0][0], serial[2][0])
+
+
+def test_overlapped_frames_within_one_lsb_through_win_flush(cuda):
+    """win_flush adds a tile's edge runs with float atomics, so at
+    fractional weights two runs may differ in a sum's last bit: frames
+    within one u8 step."""
+    prof = RenderProfile(width=128, height=96, quality=30, batch=8192,
+                         hist_backend="pallas_win", temporal_samples=2,
+                         fps=4.0, duration=0.5, transparent=True)
+    r = trender.Renderer(_spark(), prof)
+    for (a, _), (b, _) in zip(r.frames(seed=2), r.frames_overlapped(seed=2)):
+        assert a.shape == b.shape == (96, 128, 4)
+        assert int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max()) <= 1

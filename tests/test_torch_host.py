@@ -70,6 +70,7 @@ def _imported_roots(path):
 def test_port_sources_import_no_jax_package():
     sources = _port_sources()
     assert len(sources) > 20
+    assert PORT / "ops" / "interp.py" in sources
     bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p) & FORBIDDEN)
            for p in sources if _imported_roots(p) & FORBIDDEN}
     assert bad == {}
@@ -78,6 +79,7 @@ def test_port_sources_import_no_jax_package():
 def test_every_port_module_imports_with_jax_blocked():
     mods = _port_modules()
     assert "cuburn_tpu_torch.ops.tiled_sort" in mods
+    assert "cuburn_tpu_torch.ops.interp" in mods
     script = (
         "import importlib, sys\n"
         "sys.modules['cuburn_tpu'] = sys.modules['jax'] = None\n"

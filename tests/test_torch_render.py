@@ -178,9 +178,9 @@ def test_cli_renders_a_still_on_cpu(tmp_path, capsys):
     assert "scatter on cpu" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--animate"], ["--devices", "2"],
-                                  ["--stripes", "2"], ["--bands", "2"],
-                                  ["--blend", "gallery:sierpinski"]])
+@pytest.mark.parametrize("flag", [["--devices", "2"], ["--stripes", "2"],
+                                  ["--bands", "2"], ["--trace-dir", "tr"],
+                                  ["--reduce-scatter"]])
 def test_cli_refuses_unported_flags(flag):
     from cuburn_tpu_torch import main as tmain
     with pytest.raises(SystemExit, match="not ported"):
@@ -189,7 +189,8 @@ def test_cli_refuses_unported_flags(flag):
 
 def test_renderer_backend_choice():
     """Every backend of the JAX package is accepted by name; `auto` is
-    scatter on the CPU; unknown names and motion blur are refused."""
+    scatter on the CPU; unknown names are refused; a profile with
+    motion blur builds."""
     g = sierpinski()
     prof = RenderProfile(width=32, height=32, quality=5, batch=1024)
     assert trender.Renderer(g, prof, device="cpu").backend == "scatter"
@@ -202,9 +203,9 @@ def test_renderer_backend_choice():
         trender.Renderer(g, RenderProfile(
             **{**prof.__dict__, "hist_backend": "pallas_fast"}),
             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trender.Renderer(g, RenderProfile(
-            **{**prof.__dict__, "temporal_samples": 4}), device="cpu")
+    blurred = trender.Renderer(g, RenderProfile(
+        **{**prof.__dict__, "temporal_samples": 4}), device="cpu")
+    assert len(blurred._temporal_times(0.0)[0]) == 4
     r = trender.Renderer(g, prof, device="cpu")
     assert r.profile.iters_per_chunk == trender.DEFAULT_ITERS_PER_CHUNK
 
