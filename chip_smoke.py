@@ -73,6 +73,31 @@ CUDA toolkit.  Phases, each printed on its own line:
               through pallas_rgb16 (2 frames) bit-identical; one blurred
               frame each through pallas and pallas_merged; frames go to
               smoke_out/
+ 10. partition  frames past the whole-frame limits.  (a) full_feature at
+              1080p, quality Q/2, through pallas_win: accumulate against
+              accumulate_striped(n_stripes=4) from the same seed, density
+              equal in every bin, rgb within 1e-5 of each bin's density,
+              plotted counts equal, win_flush launched 4x the whole
+              frame's (one a flush) and the sort 18 passes a flush; a
+              real stripe flush (a middle stripe's second) timed and
+              checked like phase 4's; then one striped frame each
+              through pallas, pallas_merged and pallas_rgb16 at Q/4,
+              density equal to that backend's whole frame, launches
+              counted.  (b) finalize_frame against
+              finalize_frame_banded(n_bands=4) on (a)'s histogram: within
+              one u8 step, under 0.5% of pixels apart; filter_s and
+              peak device memory of each.  (c) full_feature under the 4k
+              profile at quality 10 (33.85 M bins: records do not pack
+              into 32 bits): the Renderer unpacked on scatter, pallas_win
+              warns and becomes scatter; no flush kernel launched;
+              histogram mass == plotted samples, a non-black frame (PNG
+              to smoke_out/); 2 stripes against the whole frame as in
+              (a); 4 bands against the whole filter within one u8 step;
+              iterate_s, filter_s and peak memory of whole and banded.
+              (d) one motion-blurred frame of animated_spark (T = 4,
+              gaussian) at 1080p, quality Q/4, through
+              frames_partitioned(n_stripes=2, n_bands=2) against
+              frames(): within one u8 step, twice the flushes
 
 Then one JSON line describing each kernel, the nvidia-smi line, and
 last {"ok": true, "device": {...}}.  Any failed check exits non-zero
@@ -230,9 +255,14 @@ def library_flush(torch, hist, rec, pal4, n_bins, bits, weight):
 def check_flush(torch, flush, thist, name, rec, pal, n_bins, bits, weight,
                 what):
     """One flush through kernel `name`'s wrapper against its plain
-    version on the card: every channel of the real bins within 1e-5 of
-    the bin's density, and at weight 1.0 with a 3-column palette the
-    density bit-exact, the junk bin's too.  Returns the max abs error."""
+    version on the card and against the float64 sums: every channel of
+    the kernel's real bins within 1e-5 of the bin's density of the
+    float64 sums; the plain version there within that plus its own
+    worst case (it adds a bin's k records one by one in float32, half
+    an ulp of the running sum each, k x 2^-24 of the sum), and so the
+    kernel against the plain version; at weight 1.0 with a 3-column
+    palette the density bit-exact, the junk bin's too.  Returns the max
+    abs error against the plain version."""
     dev = torch.device("cuda")
     kernel, plain = (getattr(flush, f) for f in LOGICAL_FLUSHES[name])
     got = kernel(thist.alloc(n_bins, dev), rec, pal, n_bins, bits, weight)
@@ -241,8 +271,24 @@ def check_flush(torch, flush, thist, name, rec, pal, n_bins, bits, weight,
     if pal.shape[1] == 3 and weight == 1.0:
         check(torch.equal(got[:, 3], ref[:, 3]),
               f"{name} on {what}: density not bit-exact at weight 1.0")
+    addr = torch.clamp(rec >> bits, max=n_bins)
+    w32 = float(torch.tensor(weight, dtype=torch.float32))
+    exact = torch.zeros((n_bins + 1, 4), dtype=torch.float64,
+                        device=dev).index_add_(
+        0, addr, flush._pal4(pal).double()[rec & ((1 << bits) - 1)],
+        alpha=w32)[:n_bins]
+    bound = 1e-5 * exact[:, 3:].clamp(min=1.0)
+    sequential = torch.bincount(addr, minlength=n_bins + 1)[:n_bins, None] \
+        * 2.0 ** -24 * exact.abs()
+    for side, h, tol in (("the kernel", got, bound),
+                         ("the plain version", ref, bound + sequential)):
+        off = (h[:n_bins] - exact).abs()
+        check(bool((off <= tol).all()),
+              f"{name} on {what}: {side} is {float(off.max())} from the "
+              f"float64 sums ({pal.shape[1]}-column palette, weight "
+              f"{weight})")
     err = (got[:n_bins] - ref[:n_bins]).abs()
-    check(bool((err <= 1e-5 * ref[:n_bins, 3:].clamp(min=1.0)).all()),
+    check(bool((err <= bound + sequential).all()),
           f"{name} on {what} disagrees: max err {float(err.max())} "
           f"({pal.shape[1]}-column palette, weight {weight})")
     check(float(ref[:n_bins, 3].sum()) > 0, f"{name} on {what} added no mass")
@@ -978,6 +1024,324 @@ def phase_animation(torch, flush, tiled_sort, tit, write_image, Renderer,
     return launches
 
 
+def check_striped(torch, whole, sw, striped, ss, what, bf16_flushes=0):
+    """A striped histogram against the whole frame's from the same seed:
+    density (integer counts at weight 1.0) equal in every bin; rgb within
+    1e-5 of the bin's density (float atomics add in any order), or for
+    the split flush within one bf16 ulp a flush (`bf16_flushes`: a run
+    that crosses a tile edge in one layout and not the other is summed
+    in another order in float32, and the bf16 rounding of the bin may
+    then go the other way); the junk row 0; plotted counts equal within
+    1e-6 (the counter is float32, as in the JAX package: past 2^24 a
+    running total of other chunks rounds otherwise).  Returns the max
+    rgb error."""
+    check(torch.equal(whole[:-1, 3], striped[:-1, 3]),
+          f"{what}: striped density differs from the whole frame's")
+    err = (whole[:-1, :3] - striped[:-1, :3]).abs()
+    tol = (bf16_flushes * 2.0 ** -7 * whole[:-1, :3].abs() if bf16_flushes
+           else 1e-5 * whole[:-1, 3:].clamp(min=1.0))
+    check(bool((err <= tol).all()),
+          f"{what}: striped rgb max err {float(err.max())}")
+    check(float(striped[-1].abs().sum()) == 0.0, f"{what}: junk row not 0")
+    check(sw.plotted_samples > 0 and abs(ss.plotted_samples
+                                         - sw.plotted_samples)
+          <= 1e-6 * sw.plotted_samples,
+          f"{what}: plotted {ss.plotted_samples} striped against "
+          f"{sw.plotted_samples} whole")
+    return float(err.max())
+
+
+def launches_now(flush, tiled_sort):
+    return {**flush.LAUNCHES, **tiled_sort.LAUNCHES}
+
+
+def partition_launches(flush, tiled_sort, r, stats, n_flushes, what):
+    """The launches of `r`'s flush kernel and the sort since the last
+    reset: one flush kernel launch a flush (two for the split flush),
+    the sort's passes before each sorted flush."""
+    name = FLUSH_KERNEL[r.backend]
+    per_chunk = r._batch_for(r.profile.total_iters) * r.profile.iters_per_chunk
+    flushes = stats.total_iters // per_chunk
+    check(flushes == n_flushes, f"{what}: {flushes} flushes, expected "
+          f"{n_flushes}")
+    passes = 0 if r.backend == "pallas" else len(
+        tiled_sort.bitonic_schedule(1 << (per_chunk - 1).bit_length()))
+    got = {name: flush.LAUNCHES[name],
+           "bitonic_sort": tiled_sort.LAUNCHES["bitonic_sort"]}
+    want = {name: flushes * LAUNCHES_PER_FLUSH[name],
+            "bitonic_sort": flushes * passes}
+    check(got == want and got[name] > 0,
+          f"{what}: launches {got}, expected {want}")
+    if not passes:
+        del got["bitonic_sort"]
+    return got, flushes, passes
+
+
+def measured_filter(torch, fn):
+    """(image, filter_s, peak bytes allocated during fn, bytes allocated
+    before it) of one finalize call."""
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img = fn()
+    torch.cuda.synchronize()
+    return (img, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated(), start)
+
+
+def compare_filters(torch, r, hist, n_bands, what):
+    """finalize_frame against finalize_frame_banded on one histogram,
+    each warmed once and then measured: within one u8 step and under
+    0.5% of pixels apart.  Returns (whole image, fields)."""
+    import numpy as np
+    r.finalize_frame(hist, 0.0)
+    r.finalize_frame_banded(hist, 0.0, n_bands=n_bands)
+    whole, whole_s, whole_peak, start = measured_filter(
+        torch, lambda: r.finalize_frame(hist, 0.0))
+    banded, banded_s, banded_peak, _ = measured_filter(
+        torch, lambda: r.finalize_frame_banded(hist, 0.0, n_bands=n_bands))
+    d = np.abs(whole.astype(np.int16) - banded.astype(np.int16))
+    differing = float((d > 0).any(-1).mean())
+    check(int(d.max()) <= 1 and differing < 0.005,
+          f"{what}: banded frame {int(d.max())} u8 steps from the whole "
+          f"filter's, {differing:.4%} of pixels apart")
+    check(bool(whole[..., :3].any()), f"{what}: the frame is black")
+    return whole, {
+        "n_bands": n_bands, "max_u8_step": int(d.max()),
+        "pixels_differing": differing, "filter_s_whole": whole_s,
+        "filter_s_banded": banded_s, "allocated_before_bytes": start,
+        "peak_bytes_whole": whole_peak, "peak_bytes_banded": banded_peak,
+        "peak_over_start_bytes_whole": whole_peak - start,
+        "peak_over_start_bytes_banded": banded_peak - start}
+
+
+def phase_partition(torch, flush, sort, tiled_sort, thist, tit, write_image,
+                    Renderer, full_feature, animated_spark, get_profile,
+                    quality):
+    """Phase 10: striped accumulation, banded filtering, the unpacked 4k
+    path and both partitions of a motion-blurred frame.  Returns the
+    launches of every kernel in the partitioned runs."""
+    import warnings
+
+    import numpy as np
+    half, quarter = max(quality // 2, 1), max(quality // 4, 1)
+    launches = dict.fromkeys(KERNELS, 0)
+    out_dir = os.path.join(REPO, "smoke_out")
+    os.makedirs(out_dir, exist_ok=True)
+
+    # (a) 1080p through pallas_win, whole frame then 4 stripes; the
+    # records of a middle stripe's second flush are kept for timing
+    r = Renderer(full_feature(), get_profile("1080p", quality=half))
+    check(r.backend == "pallas_win", f"backend {r.backend}")
+    reset_launches(flush, tiled_sort)
+    whole, sw = r.accumulate(0.0, seed=3)
+    per_frame, n_flushes, passes = partition_launches(
+        flush, tiled_sort, r, sw, sw.total_iters // (
+            r._batch_for(r.profile.total_iters) * r.profile.iters_per_chunk),
+        "the whole 1080p frame")
+    win, calls, kept = tit.PACKED_FLUSHES["pallas_win"], [], {}
+
+    def keep(hist, recs, palette_hi, n_bins, bits, weight=None):
+        calls.append(n_bins)
+        if len(calls) == n_flushes + 2:      # stripe 1, its second flush
+            kept.update(rec=recs.reshape(-1).clone(), n_bins=n_bins,
+                        bits=bits)
+        return win(hist, recs, palette_hi, n_bins, bits, weight)
+    tit.PACKED_FLUSHES["pallas_win"] = keep
+    reset_launches(flush, tiled_sort)
+    try:
+        striped, ss = r.accumulate_striped(0.0, seed=3, n_stripes=4)
+    finally:
+        tit.PACKED_FLUSHES["pallas_win"] = win
+    got, _f, _p = partition_launches(flush, tiled_sort, r, ss, 4 * n_flushes,
+                                     "4 stripes of the 1080p frame")
+    for name, n in got.items():
+        launches[name] += n
+    check(got["win_flush"] == 4 * per_frame["win_flush"],
+          "the stripes did not launch win_flush 4x the whole frame's")
+    stripe_bins = sorted(set(calls))
+    check(len(stripe_bins) == 1 and stripe_bins[0] * 4 == r.cam.n_bins,
+          f"stripe flushes took n_bins {stripe_bins}")
+    rgb_err = check_striped(torch, whole, sw, striped, ss,
+                            "pallas_win, 4 stripes")
+    phase(10, "partition", part="a", genome="full_feature", profile="1080p",
+          quality=half, backend=r.backend, n_stripes=4,
+          bins=r.cam.n_bins, stripe_bins=stripe_bins[0],
+          flushes_whole=n_flushes, flushes_striped=4 * n_flushes,
+          sort_passes_per_flush=passes, launches_whole=per_frame,
+          launches_striped=got, density_equal=True, rgb_max_abs_err=rgb_err,
+          plotted_samples=ss.plotted_samples,
+          iterate_s_whole=sw.iterate_s, iterate_s_striped=ss.iterate_s,
+          iterate_ratio=ss.iterate_s / sw.iterate_s,
+          total_iters_whole=sw.total_iters, total_iters_striped=ss.total_iters)
+
+    # a real stripe flush: checked against the plain versions, timed
+    dev = torch.device("cuda")
+    rec, n_bins, bits = kept["rec"], kept["n_bins"], kept["bits"]
+    gen = torch.Generator().manual_seed(3)
+    pal = torch.rand((1 << bits, 3), generator=gen).to(dev)
+    pal4 = flush._pal4(pal).contiguous()
+    errs = {k: check_flush(torch, flush, thist, k, rec, pal, n_bins,
+                           bits, 1.0, "a stripe flush")
+            for k in LOGICAL_FLUSHES}
+    hist = thist.alloc(n_bins, dev)
+    srt = sort.sort_records(rec)
+    med = medians(torch, {
+        "ms": lambda: flush.accumulate_windowed(hist, rec, pal, n_bins,
+                                                bits),
+        "kernel_only_ms": lambda: flush._launch(
+            "win_flush", dev, srt.data_ptr(), srt.numel(), pal4.data_ptr(),
+            bits, n_bins, 1.0, hist.data_ptr()),
+        "sort_ms": lambda: sort.sort_records(rec),
+        "plain_ms": lambda: flush.accumulate_windowed_reference(
+            hist, rec, pal, n_bins, bits),
+        "library_ms": lambda: library_flush(torch, hist, rec, pal4, n_bins,
+                                            bits, 1.0)})
+    mix = flush_mix(torch, rec, n_bins, bits)
+    med["bound_ms"] = bound(mix["records"] * 8 + (mix["touched_bins"] + 1)
+                            * 32 + pal4.numel() * 4)[0]
+    phase(10, "partition", part="a_stripe_flush", kernel="win_flush",
+          stripe=1, flush=2, bins=n_bins, color_bits=bits, **mix,
+          **{f"{k}_max_abs_err": v for k, v in errs.items()}, **med)
+    del rec, srt, hist, kept
+
+    # the other three flush kernels, one striped frame each at Q/4
+    for backend in ("pallas", "pallas_merged", "pallas_rgb16"):
+        rb = Renderer(full_feature(), get_profile(
+            "1080p", quality=quarter, hist_backend=backend))
+        hw, sbw = rb.accumulate(0.0, seed=5)
+        reset_launches(flush, tiled_sort)
+        hs, sbs = rb.accumulate_striped(0.0, seed=5, n_stripes=4)
+        per_chunk = rb._batch_for(rb.profile.total_iters) \
+            * rb.profile.iters_per_chunk
+        got, flushes, _p = partition_launches(
+            flush, tiled_sort, rb, sbs, 4 * (sbw.total_iters // per_chunk),
+            f"4 stripes through {backend}")
+        for name, n in got.items():
+            launches[name] += n
+        err = check_striped(
+            torch, hw, sbw, hs, sbs, f"{backend}, 4 stripes",
+            bf16_flushes=flushes // 4 if backend == "pallas_rgb16" else 0)
+        phase(10, "partition", part="a", backend=backend, quality=quarter,
+              n_stripes=4, flushes_striped=flushes, launches_striped=got,
+              density_equal=True, rgb_max_abs_err=err,
+              iterate_s_whole=sbw.iterate_s, iterate_s_striped=sbs.iterate_s)
+        del hw, hs
+
+    # (b) banded filtering of (a)'s histogram
+    del whole
+    _img, fields = compare_filters(torch, r, striped, 4, "1080p")
+    phase(10, "partition", part="b", profile="1080p", **fields)
+    del striped, r
+
+    # (c) 4k: unpacked records through scatter
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        r4 = Renderer(full_feature(), get_profile("4k", quality=10))
+        check(not caught, f"the 4k renderer warned: {caught}")
+        asked = Renderer(full_feature(), get_profile(
+            "4k", quality=10, hist_backend="pallas_win"))
+    check(not r4.packed and r4.backend == "scatter",
+          f"4k: packed {r4.packed}, backend {r4.backend}")
+    check(asked.backend == "scatter" and any(
+        "needs packed records" in str(w.message) for w in caught),
+        "4k: pallas_win did not warn and become scatter")
+    del asked
+    scatter, chunk = thist.BACKENDS["scatter"], []
+
+    def keep_second(hist, addr, rgba):
+        chunk.append(None)
+        if len(chunk) == 2:
+            chunk[1] = (addr.reshape(-1).clone(), rgba.reshape(-1, 4).clone())
+        return scatter(hist, addr, rgba)
+    thist.BACKENDS["scatter"] = keep_second
+    reset_launches(flush, tiled_sort)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        h4, s4 = r4.accumulate(0.0, seed=4)
+    finally:
+        thist.BACKENDS["scatter"] = scatter
+    acc_peak = torch.cuda.max_memory_allocated()
+    check(not any(launches_now(flush, tiled_sort).values()),
+          f"4k launched a packed-record kernel: "
+          f"{launches_now(flush, tiled_sort)}")
+    check(bool(torch.isfinite(h4).all()), "4k: non-finite histogram")
+    mass = float(h4[:-1, 3].double().sum())
+    check(abs(mass - s4.plotted_samples) <= 1e-4 * mass,
+          f"4k: histogram mass {mass} != plotted {s4.plotted_samples}")
+    # one flush of full records (the second, past the fuse steps) timed
+    # alone: index_add_ of 24-byte records into the 542 MB histogram
+    addr, rgba = chunk[1]
+    del chunk
+    h_t = thist.alloc(r4.cam.n_bins, torch.device("cuda"))
+    scatter_med = medians(torch, {
+        "scatter_flush_ms": lambda: thist.accumulate_scatter(h_t, addr,
+                                                             rgba)}, reps=5)
+    live = addr[addr != r4.cam.junk_bin]
+    touched = int(torch.unique(live).numel())
+    scatter_med["scatter_flush_bound_ms"] = bound(
+        addr.numel() * 24 + (touched + 1) * 32)[0]
+    scatter_med.update(scatter_flush_records=addr.numel(),
+                       scatter_flush_touched_bins=touched,
+                       scatter_flush_junk_share=1 - live.numel()
+                       / addr.numel())
+    del addr, rgba, live, h_t
+    h4s, s4s = r4.accumulate_striped(0.0, seed=4, n_stripes=2)
+    err4 = check_striped(torch, h4, s4, h4s, s4s, "4k, 2 stripes")
+    del h4s
+    img4, fields4 = compare_filters(torch, r4, h4, 4, "4k")
+    check(img4.shape == (r4.profile.height, r4.profile.width, 4),
+          f"4k image shape {img4.shape}")
+    png = os.path.join(out_dir, "chip_smoke_full_feature_4k.png")
+    write_image(png, img4)
+    cam = r4.cam
+    per_chunk = r4._batch_for(r4.profile.total_iters) \
+        * r4.profile.iters_per_chunk
+    phase(10, "partition", part="c", genome="full_feature", profile="4k",
+          quality=10, acc=[cam.acc_width, cam.acc_height], bins=cam.n_bins,
+          packed=r4.packed, backend=r4.backend, records_per_flush=per_chunk,
+          flushes=s4.total_iters // per_chunk,
+          plotted_samples=s4.plotted_samples, total_iters=s4.total_iters,
+          mass=mass, iterate_s=s4.iterate_s,
+          samples_per_s=s4.samples_per_sec,
+          accumulate_peak_bytes=acc_peak, **scatter_med,
+          iterate_s_striped_2=s4s.iterate_s,
+          striped_density_equal=True, striped_rgb_max_abs_err=err4,
+          **fields4, lit_fraction=float((img4[..., :3] > 0).any(-1).mean()),
+          png=os.path.relpath(png, REPO))
+    del h4, r4, img4
+
+    # (d) motion blur with both partitions
+    rd = Renderer(spark(animated_spark), get_profile(
+        "1080p", quality=quarter, temporal_samples=ANIM_SAMPLES, fps=4.0,
+        duration=0.25))
+    check(len(rd.frame_times()) == 1, "10d: expected one frame")
+    reset_launches(flush, tiled_sort)
+    (plain,) = list(rd.frames(seed=1))
+    n_plain = flush.LAUNCHES["win_flush"]
+    reset_launches(flush, tiled_sort)
+    (part,) = list(rd.frames_partitioned(seed=1, n_stripes=2, n_bands=2))
+    got, flushes, _p = partition_launches(
+        flush, tiled_sort, rd, part[1], 2 * n_plain, "10d, 2 stripes")
+    for name, n in got.items():
+        launches[name] += n
+    d = np.abs(plain[0].astype(np.int16) - part[0].astype(np.int16))
+    check(int(d.max()) <= 1, f"10d: partitioned frame {int(d.max())} u8 "
+          "steps from frames()'")
+    check(bool(part[0][..., :3].any()), "10d: the frame is black")
+    phase(10, "partition", part="d", genome="animated_spark",
+          temporal_samples=ANIM_SAMPLES, quality=quarter, n_stripes=2,
+          n_bands=2, flushes=flushes, launches=got, max_u8_step=int(d.max()),
+          pixels_differing=float((d > 0).any(-1).mean()),
+          iterate_s=[plain[1].iterate_s, part[1].iterate_s],
+          filter_s=[plain[1].filter_s, part[1].filter_s])
+    for name in ("win_flush", "bitonic_sort", "packed_flush", "merged_flush",
+                 "win_flush_rgb16"):
+        check(launches[name] > 0, f"the partitioned runs launched no {name}")
+    return launches
+
+
 def build_all(build):
     """Every kernel library, one nvcc each, all started together."""
     libs = sorted({lib for lib, _ in KERNELS.values()})
@@ -1062,11 +1426,15 @@ def main(argv=None) -> int:
     anim_launches = phase_animation(
         torch, flush, tiled_sort, tit, write_image, Renderer,
         animated_spark, get_profile, half)
+    part_launches = phase_partition(
+        torch, flush, sort, tiled_sort, thist, tit, write_image, Renderer,
+        full_feature, animated_spark, get_profile, args.quality)
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu",
         "replaces": replaces, "launches": launches[name],
         "launches_animation": anim_launches[name],
+        "launches_partitioned": part_launches[name],
         "max_abs_err": errs[name], "ms": times[name]["ms"],
         "device_ms": times[name]["device_ms"],
         "plain_ms": times[name]["plain_ms"],

@@ -9,6 +9,8 @@ that module's argument parser, genome loader and metrics records:
     cuburn-tpu-torch gallery:animated_spark --animate -o a.y4m \
         --fps 24 --duration 2 --temporal-samples 4
     cuburn-tpu-torch a.flam3 --blend b.flam3 --animate -o edge.mp4
+    cuburn-tpu-torch gallery:full_feature -o big.png --profile 4k \
+        --stripes 2 --bands 4
 
 The render runs on CUDA unless `--cpu` asks for the CPU; without a GPU
 the CUDA default fails instead of falling back.
@@ -176,15 +178,13 @@ def _refuse_unported(args) -> None:
     refused = [
         ("--devices", args.devices is not None and args.devices > 1),
         ("--reduce-scatter", args.reduce_scatter),
-        ("--stripes", args.stripes > 1),
-        ("--bands", args.bands > 1),
         ("--trace-dir", args.trace_dir is not None),
     ]
     for flag, used in refused:
         if used:
             raise SystemExit(
-                f"cuburn-tpu-torch: {flag} is not ported yet (whole "
-                "frames on one device only; see ROADMAP.md queue A)")
+                f"cuburn-tpu-torch: {flag} is not ported yet (one "
+                "device only; see ROADMAP.md queue A)")
 
 
 def _animate(args, renderer, sequence, output_mod) -> None:
@@ -199,7 +199,8 @@ def _animate(args, renderer, sequence, output_mod) -> None:
     def run_frames(r, seed):
         # the overlapped frame loop is the default: the same images, and
         # the host encodes frame N-1 while the device works on N
-        return r.frames_partitioned(seed=seed,
+        return r.frames_partitioned(seed=seed, n_stripes=args.stripes,
+                                    n_bands=args.bands,
                                     overlap=not args.no_overlap)
 
     def frame_iter():
@@ -277,6 +278,10 @@ def main(argv=None) -> int:
         raise SystemExit(
             "--save-hist/--resume-hist/--time apply to stills; "
             "they have no effect with --animate")
+    if args.resume_hist and args.stripes > 1:
+        raise SystemExit(
+            "--resume-hist is not supported with --stripes (striped "
+            "accumulation rebuilds the histogram from scratch)")
 
     import numpy as np
 
@@ -317,14 +322,19 @@ def main(argv=None) -> int:
         except FileNotFoundError:
             raise SystemExit(
                 f"resume histogram not found: {args.resume_hist}")
-    if args.save_hist or hist0 is not None:
+    if args.stripes > 1:
+        hist, stats = renderer.accumulate_striped(
+            args.time, args.seed, n_stripes=args.stripes)
+    else:
         hist, stats = renderer.accumulate(args.time, args.seed,
                                           hist0=hist0)
-        if args.save_hist:
-            np.save(args.save_hist, hist.cpu().numpy())
-        img = renderer.finalize_frame(hist, args.time, stats)
+    if args.save_hist:
+        np.save(args.save_hist, hist.cpu().numpy())
+    if args.bands > 1:
+        img = renderer.finalize_frame_banded(hist, args.time, stats,
+                                             n_bands=args.bands)
     else:
-        img, stats = renderer.render_frame(args.time, seed=args.seed)
+        img = renderer.finalize_frame(hist, args.time, stats)
     output_mod.write_image(args.output, img)
     if args.stats:
         print(f"iterate {stats.iterate_s * 1e3:.1f} ms "

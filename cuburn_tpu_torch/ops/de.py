@@ -55,22 +55,49 @@ def _gaussian_taps(radius: float, half: int, device):
     return torch.as_tensor(k / k.sum(), device=device)
 
 
-def _sep_blur_band(img, radius: float, half: int):
-    """One band's separable Gaussian, octave-downsampled when wide and
-    the frame is at least PYRAMID_MIN_WIDTH wide: box down by f, blur
-    with a coarse Gaussian whose composed variance matches the target,
-    then linear interpolation back up."""
-    dev = img.device
-    if half < PYRAMID_MIN_HALF or img.shape[1] < PYRAMID_MIN_WIDTH:
-        return _sep_blur(img, _gaussian_taps(radius, half, dev), half)
-    o = int(np.floor(np.log2(half / PYRAMID_COARSE_HALF)))
-    f = 1 << max(o, 0)
+def _pyramid_plan(radius: float, half: int, width: int):
+    """(f, coarse radius, coarse half-width) of one rung on an
+    accumulator `width` wide; f = 1 blurs directly.  The pyramid takes
+    rungs at least PYRAMID_MIN_HALF wide on frames at least
+    PYRAMID_MIN_WIDTH wide, at the octave that brings the half-width
+    near PYRAMID_COARSE_HALF."""
+    if half < PYRAMID_MIN_HALF or width < PYRAMID_MIN_WIDTH:
+        return 1, radius, half
+    f = 1 << max(int(np.floor(np.log2(half / PYRAMID_COARSE_HALF))), 0)
     if f <= 1:
-        return _sep_blur(img, _gaussian_taps(radius, half, dev), half)
+        return 1, radius, half
     sigma = max(radius * 0.5, 1e-3)
     sigma_c = float(np.sqrt(max(sigma * sigma - f * f / 3.0, 0.25))) / f
     r_c = 2.0 * sigma_c
-    half_c = max(int(np.ceil(1.5 * r_c)), 1)
+    return f, r_c, max(int(np.ceil(1.5 * r_c)), 1)
+
+
+def band_context(static_max_radius: float, width: int):
+    """(rows, align) that a horizontal band of a `width`-wide
+    accumulator needs for its DE to equal the whole frame's: the
+    pyramid boxes rows in blocks of f counted from the accumulator's
+    row 0, so a band's rows must start at a multiple of `align` (the
+    largest f), and an output row reads up to f * (coarse half-width
+    + 2) rows away, past the direct blur's 1.5 x radius; `rows` is the
+    largest such reach.  (0, 1) when no rung takes the pyramid."""
+    radii, taps = band_ladder(static_max_radius)
+    rows, align = 0, 1
+    for radius, half in zip(radii, taps):
+        f, _r_c, half_c = _pyramid_plan(radius, half, width)
+        if f > 1:
+            rows, align = max(rows, f * (half_c + 2)), max(align, f)
+    return rows, align
+
+
+def _sep_blur_band(img, radius: float, half: int):
+    """One band's separable Gaussian, octave-downsampled by
+    _pyramid_plan's f: box down by f, blur with a coarse Gaussian whose
+    composed variance matches the target, then linear interpolation
+    back up."""
+    dev = img.device
+    f, r_c, half_c = _pyramid_plan(radius, half, img.shape[1])
+    if f == 1:
+        return _sep_blur(img, _gaussian_taps(radius, half, dev), half)
     H, W, C = img.shape
     Hp, Wp = -(-H // f) * f, -(-W // f) * f
     x = F.pad(img, (0, 0, 0, Wp - W, 0, Hp - H))
@@ -108,7 +135,8 @@ def radius_for_density(density, max_radius, min_radius, curve):
 
 
 def density_filter(img, density, max_radius, min_radius, curve,
-                   static_max_radius: float = None):
+                   static_max_radius: float = None,
+                   skip_empty: bool = False):
     """Banded adaptive DE blur with two-rung interpolation.
 
     img     (H, W, 4) log-scaled premultiplied rgba
@@ -116,7 +144,11 @@ def density_filter(img, density, max_radius, min_radius, curve,
     max_radius/min_radius/curve: 0-d tensors of the flam3 estimator
         parameters, which set each pixel's rung weights
     static_max_radius: the radius that fixes the band ladder
-        (default 9, flam3's)."""
+        (default 9, flam3's)
+    skip_empty: a rung whose hat weights are all zero adds nothing, so
+        its two convolutions are skipped.  The test is a host read of
+        `(w > 0).any()`: one device sync per rung.  The result is the
+        same either way."""
     if static_max_radius is None:
         static_max_radius = 9.0
     radii, taps = band_ladder(static_max_radius)
@@ -137,5 +169,7 @@ def density_filter(img, density, max_radius, min_radius, curve,
     for k in range(N_BANDS):
         # linear hat: weight 1 at rung k, 0 beyond the neighbours
         w = torch.clamp(1.0 - torch.abs(u - k), min=0.0)[..., None]
+        if skip_empty and not bool((w > 0).any()):
+            continue
         out = out + _sep_blur_band(img * w, radii[k], taps[k])
     return out

@@ -14,7 +14,9 @@ advances in lockstep; per iteration, for every point:
 `iterate_accumulate` collects `iters_per_flush` steps of records and
 flushes them into the histogram once per chunk.  JAX's `scan` and
 `fori_loop` are Python loops here; each step is a few hundred small
-eager kernels.  Records are int64 tensors holding u32 values.
+eager kernels.  Records are int64 tensors holding u32 values.  A frame
+whose records do not fit 32 bits (past 2^24 bins, or `packed=False`)
+flushes full (addr, rgba) records from `iterate_chunk` instead.
 """
 
 from __future__ import annotations
@@ -250,10 +252,38 @@ def record_bits(key: StructureKey, cam: CameraSpec, backend: str,
     return cbits, cbits
 
 
+def iterate_chunk(key: StructureKey, cam: CameraSpec, params, cdf_rows,
+                  state: IterState, ppu, n_iters: int, fuse: int,
+                  table=None):
+    """Advance every trajectory n_iters steps, collecting full records.
+
+    Returns (new_state, addr (n_iters, B) int64, rgba (n_iters, B, 4)
+    float32): opacity clipped to [0, 1], rgb the palette colour times
+    it, density the opacity.  n_iters x B records of 24 bytes each: the
+    unpacked path's flush, for frames whose packed records do not fit
+    32 bits."""
+    if table is None:
+        table = build_xform_table(key, params)
+    batch = state.x.shape[0]
+    dev = state.x.device
+    addrs = torch.empty((n_iters, batch), dtype=torch.int64, device=dev)
+    rgbas = torch.empty((n_iters, batch, 4), dtype=torch.float32,
+                        device=dev)
+    for k in range(n_iters):
+        state, addr, pcolor, opacity = iterate_step(
+            key, cam, fuse, params, cdf_rows, ppu, state, table=table)
+        opacity = torch.clamp(opacity, 0.0, 1.0)
+        addrs[k] = addr
+        rgbas[k, :, :3] = _palette_rgb(params.palette, pcolor) \
+            * opacity[:, None]
+        rgbas[k, :, 3] = opacity
+    return state, addrs, rgbas
+
+
 def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
                        params, cdf_rows, state: IterState, hist, ppu,
                        n_chunks: int, iters_per_flush: int, fuse: int,
-                       op_bits: int = 0, weight=None):
+                       op_bits: int = 0, weight=None, packed: bool = True):
     """Advance n_chunks * iters_per_flush steps, flushing packed
     records into `hist` (updated in place) once per chunk.
 
@@ -267,18 +297,28 @@ def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
     `pallas_merged`, `pallas_win`, or `pallas_rgb16` on the split
     layout of hist_alloc_for) or an ops/histogram.py backend on
     unpacked rows (`scatter`, `scatter_sorted`, `sortcum`).  `op_bits`
-    enables the opacity-extended record.  Returns (new_state, hist, plotted) with
-    plotted a float32 device scalar, as the JAX counterpart's f32
+    enables the opacity-extended record.
+
+    With `packed=False`, or where `record_bits` leaves no colour bits
+    (the address takes more than 24 bits), each chunk is
+    `iterate_chunk`'s full (addr, rgba) records, scattered through the
+    ops/histogram.py backend; a packed-record flush raises ValueError
+    there, as in the JAX package.  Returns (new_state, hist, plotted)
+    with plotted a float32 device scalar, as the JAX counterpart's f32
     counter."""
-    cbits, tot_bits = record_bits(key, cam, backend, op_bits)
-    if not cbits:
-        raise NotImplementedError(
-            "records do not pack into 32 bits; the unpacked (addr, rgba) "
-            "path is not ported yet (ROADMAP.md queue A)")
+    cbits, tot_bits = (record_bits(key, cam, backend, op_bits) if packed
+                       else (0, 0))
     if backend in PACKED_FLUSHES:
+        if not cbits:
+            raise ValueError("pallas backend requires packed records "
+                             "(<= 2^24 bins; see opacity_bits_for)")
         flush = PACKED_FLUSHES[backend]
     else:
         scatter = hist_mod.get_backend(backend)
+        if not cbits:
+            return _accumulate_unpacked(
+                key, cam, scatter, params, cdf_rows, state, hist, ppu,
+                n_chunks, iters_per_flush, fuse, weight)
 
         def flush(hist, recs, palette_hi, n_bins, bits, weight=None):
             addrs, rgbas = unpack_records(bits, palette_hi, recs)
@@ -311,12 +351,32 @@ def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
     return state, hist, plotted
 
 
+def _accumulate_unpacked(key, cam, scatter, params, cdf_rows, state, hist,
+                         ppu, n_chunks: int, iters_per_flush: int,
+                         fuse: int, weight):
+    """iterate_accumulate's full-record branch: per chunk,
+    iterate_chunk's records times `weight` scattered into hist."""
+    table = build_xform_table(key, params)
+    plotted = torch.zeros((), dtype=torch.float32, device=state.x.device)
+    for _ in range(n_chunks):
+        state, addrs, rgbas = iterate_chunk(
+            key, cam, params, cdf_rows, state, ppu, iters_per_flush, fuse,
+            table=table)
+        if weight is not None:
+            rgbas = rgbas * weight
+        hist = scatter(hist, addrs, rgbas)
+        plotted = plotted + (addrs != cam.junk_bin).sum() \
+            .to(torch.float32)
+    return state, hist, plotted
+
+
 def iterate_accumulate_temporal(key: StructureKey, cam: CameraSpec,
                                 backend: str, params_T,
                                 state: IterState, hist, ppu_T,
                                 n_chunks_per_sample: int,
                                 iters_per_flush: int, fuse: int,
-                                weights_T=None, op_bits: int = 0):
+                                weights_T=None, op_bits: int = 0,
+                                packed: bool = True):
     """Accumulate the T temporal samples of a motion-blurred frame into
     `hist` (updated in place), sample after sample.
 
@@ -329,7 +389,8 @@ def iterate_accumulate_temporal(key: StructureKey, cam: CameraSpec,
     k's contribution is scaled by weights_T[k].  `pallas_rgb16` rounds
     its rgb to bf16 once per touched bin per flush, whether a frame
     has T flush groups or one (the JAX package's contract too).
-    Returns (new_state, hist, plotted), plotted unweighted."""
+    `packed` is iterate_accumulate's.  Returns (new_state, hist,
+    plotted), plotted unweighted."""
     n_samples = ppu_T.shape[0]
     if weights_T is None:
         weights_T = [None] * n_samples
@@ -339,7 +400,7 @@ def iterate_accumulate_temporal(key: StructureKey, cam: CameraSpec,
         state, hist, n = iterate_accumulate(
             key, cam, backend, params_k, xform_cdf_rows(params_k), state,
             hist, ppu_T[k], n_chunks_per_sample, iters_per_flush, fuse,
-            op_bits=op_bits, weight=weights_T[k])
+            op_bits=op_bits, weight=weights_T[k], packed=packed)
         plotted = plotted + n
     return state, hist, plotted
 

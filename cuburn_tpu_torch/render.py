@@ -11,6 +11,14 @@ Port of `cuburn_tpu/render.py` for one device.  Per frame:
   logscale -> density estimation -> downsample -> colorclip -> u8
   u8 readback                                           [host]
 
+Frames past what one whole-frame pass should hold split it: striped
+accumulation (`accumulate_striped`) runs the chaos game once per
+horizontal stripe of the accumulator, each into its own small
+histogram, and banded filtering (`finalize_frame_banded`) filters
+horizontal bands with enough context rows.  A frame whose records do
+not pack into 32 bits (past 2^24 bins, the `4k` profile) accumulates
+full (addr, rgba) records through `scatter`.
+
 The histogram a caller sees is the logical (n_bins+1, 4) float32
 tensor on the device; it is also the checkpoint format shared with the
 JAX package.  The `pallas_rgb16` backend accumulates into its split
@@ -28,6 +36,7 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from cuburn_tpu_torch.device import resolve_device
 from cuburn_tpu_torch.genome.specs import Genome
@@ -129,34 +138,121 @@ def _filter_frame(cam: CameraSpec, transparent: bool, de_on: bool,
                   filter_shape: str = "gaussian",
                   earlyclip: bool = False):
     """logscale -> DE -> downsample -> colorclip -> u8 on a logical
-    histogram without its junk bin (earlyclip swaps the last two
-    stages, flam3's pre-2008 order).  Returns the u8 frame, rgb only
+    histogram without its junk bin.  Returns the u8 frame, rgb only
     for opaque output."""
-    img = hist.reshape(cam.acc_height, cam.acc_width, 4)
+    u8 = _filter_band(
+        hist.reshape(cam.acc_height, cam.acc_width, 4), params,
+        quality_per_cell, cam.ss, cam.gutter, cam.gutter, transparent,
+        de_on, de_static_r, spatial_filter, filter_shape,
+        earlyclip=earlyclip)
+    return u8 if transparent else u8[..., :3]
+
+
+def band_margin(de_on: bool, de_r: float, spatial_filter: float,
+                filter_shape: str, ss: int) -> int:
+    """Context rows a band needs above and below: 1.5x the (capped)
+    static DE radius plus the spatial filter's half-width, plus one,
+    rounded up to a multiple of ss."""
+    de_half = (int(np.ceil(1.5 * min(max(de_r, 0.0),
+                                     de_mod.MAX_RADIUS_CAP)))
+               if de_on else 0)
+    pad = 0
+    if spatial_filter > 0:
+        pad = (spatial_filter_taps(filter_shape, spatial_filter,
+                                   ss).shape[0] - ss) // 2
+    return ss * int(np.ceil((de_half + pad + 1) / ss))
+
+
+def _filter_band(hist_band, params, quality_per_cell, ss: int,
+                 margin: int, gutter_x: int, transparent: bool,
+                 de_on: bool, de_static_r: float, spatial_filter: float,
+                 filter_shape: str, skip_empty: bool = False,
+                 earlyclip: bool = False, de_rows=(0, 0)):
+    """logscale -> DE -> downsample -> colorclip -> u8 on an
+    (rows, acc_w, 4) accumulator image (earlyclip swaps the last two
+    stages, flam3's pre-2008 order).  `margin` rows above and below and
+    `gutter_x` columns on each side are context that the downsample
+    drops: a whole frame's gutter, or a band's context rows.  `de_rows`
+    (top, bottom) are further rows that only the DE reads, dropped
+    after it.  Every stage is local (the DE's reach, the spatial
+    filter's half-width), so a band with enough context rows gives the
+    whole-frame filter's rows up to float reassociation.  Returns u8
+    rgba."""
+    img = hist_band
     raw_density = img[..., 3]
     img = logscale(img, params.brightness, quality_per_cell)
     if de_on:
         img = de_mod.density_filter(
             img, raw_density,
-            params.estimator_radius * cam.ss,
-            params.estimator_minimum * cam.ss,
+            params.estimator_radius * ss,
+            params.estimator_minimum * ss,
             params.estimator_curve,
-            static_max_radius=de_static_r)
+            static_max_radius=de_static_r,
+            skip_empty=skip_empty)
+    img = img[de_rows[0]:img.shape[0] - de_rows[1]]
     if earlyclip:
         img = colorclip(
             img, params.gamma, params.vibrancy, params.highlight_power,
             params.gamma_threshold, params.background, transparent)
-        img = downsample(img, cam.ss, spatial_filter, filter_shape,
-                         gutter=cam.gutter)
+        img = downsample(img, ss, spatial_filter, filter_shape,
+                         gutter=(margin, gutter_x))
         img = torch.clamp(img, 0.0, 1.0)
     else:
-        img = downsample(img, cam.ss, spatial_filter, filter_shape,
-                         gutter=cam.gutter)
+        img = downsample(img, ss, spatial_filter, filter_shape,
+                         gutter=(margin, gutter_x))
         img = colorclip(
             img, params.gamma, params.vibrancy, params.highlight_power,
             params.gamma_threshold, params.background, transparent)
-    u8 = to_u8(img)
-    return u8 if transparent else u8[..., :3]
+    return to_u8(img)
+
+
+def _merge_stripe(full, stripe, row0: int, rows: int, acc_w: int):
+    """Add a stripe's logical histogram rows [0, rows) into the full
+    histogram at row offset row0, in place; returns full.  The last
+    stripe's rows past `rows` lie beyond the frame and are left out,
+    as the whole-frame render's bounds test leaves those points out."""
+    n = rows * acc_w
+    full[row0 * acc_w:row0 * acc_w + n] += stripe[:n]
+    return full
+
+
+def _filter_banded_device(himg, params, quality_per_cell, n_bands: int,
+                          band_rows: int, margin: int, ss: int,
+                          gutter_x: int, transparent: bool, de_on: bool,
+                          de_static_r: float, spatial_filter: float,
+                          filter_shape: str, skip_empty: bool = False,
+                          earlyclip: bool = False):
+    """Every band of finalize_frame_banded on the device: the
+    (acc_h, acc_w, 4) image zero-padded by `margin` rows above (and
+    below as far as the last band needs), then one _filter_band per
+    band start.  Where the DE takes the pyramid path, a band also
+    carries de_mod.band_context's rows above and below for the DE
+    alone, its first row on a multiple of the pyramid's block height
+    from the accumulator's row 0, as the whole frame's blocks lie.
+    Returns (n_bands, band_rows/ss, W, C) u8, C = 3 for opaque output
+    (alpha is the constant the host fills in), 4 for transparent."""
+    acc_h, acc_w = himg.shape[0], himg.shape[1]
+    need_h = gutter_x + n_bands * band_rows + 2 * margin
+    pad_bot = max(0, need_h - margin - acc_h)
+    ctx, align = (de_mod.band_context(de_static_r, acc_w) if de_on
+                  else (0, 1))
+    top = margin + ctx + align - 1
+    padded = F.pad(himg, (0, 0, 0, 0, top, pad_bot + ctx))
+    bands = []
+    for b in range(n_bands):
+        # accumulator rows [r0, r1) are the band with its margin rows;
+        # [d0, r1 + ctx) adds the DE's context, d0 on the block grid.
+        # Row r of himg sits at r + top in `padded`.
+        r0 = gutter_x - margin + band_rows * b
+        r1 = r0 + band_rows + 2 * margin
+        d0 = (r0 - ctx) // align * align
+        out = _filter_band(
+            padded[d0 + top:r1 + ctx + top], params, quality_per_cell, ss,
+            margin, gutter_x, transparent, de_on, de_static_r,
+            spatial_filter, filter_shape, skip_empty=skip_empty,
+            earlyclip=earlyclip, de_rows=(r0 - d0, ctx))
+        bands.append(out if transparent else out[..., :3])
+    return torch.stack(bands)
 
 
 def _with_alpha(img_np: np.ndarray) -> np.ndarray:
@@ -178,7 +274,11 @@ class Renderer:
     backend follows the JAX package's names (`BACKENDS`): `auto` is
     `pallas_win` (the windowed flush, a CUDA kernel) on a GPU and
     `scatter` on the CPU.  Each `pallas*` backend launches its CUDA
-    kernel on a GPU and runs the kernel's plain version on the CPU."""
+    kernel on a GPU and runs the kernel's plain version on the CPU.
+    A frame whose records do not pack into 32 bits (`packed` False)
+    accumulates full records through `scatter`, as the JAX package
+    does: `auto` is `scatter` there, and a `pallas*` backend warns and
+    becomes `scatter`."""
 
     def __init__(self, genome: Genome, profile: RenderProfile,
                  device: torch.device | str | None = None):
@@ -227,18 +327,20 @@ class Renderer:
                                       len(genome.xforms))
             self.packed = cb > 0
             self.op_bits = ob
-        if not self.packed:
-            raise NotImplementedError(
-                f"{self.cam.n_bins} bins do not fit packed 32-bit "
-                "records; the unpacked path is not ported yet "
-                "(ROADMAP.md queue A: iterate_chunk)")
         backend = profile.hist_backend
         if backend == "auto":
-            backend = ("pallas_win" if self.device.type == "cuda"
+            backend = ("pallas_win"
+                       if self.device.type == "cuda" and self.packed
                        else "scatter")
         elif backend not in BACKENDS:
             raise ValueError(f"unknown histogram backend {backend!r}; "
                              f"have {sorted(BACKENDS)}")
+        if backend in PACKED_FLUSHES and not self.packed:
+            warnings.warn(
+                "pallas histogram backend needs packed records (the "
+                "addr+xform+color coordinate must fit 32 bits); "
+                "using scatter")
+            backend = "scatter"
         self.backend = backend
         self.profile = dataclasses.replace(
             profile, iters_per_chunk=self._resolve_iters_per_chunk(
@@ -321,6 +423,58 @@ class Renderer:
             ts_times, ts_weights, hist, seed=eff_seed,
             iters_per_sample=prof.total_iters / len(ts_times))
 
+    def accumulate_striped(self, t: float = 0.0, seed: int = 0,
+                           n_stripes: int = 4,
+                           ) -> Tuple[torch.Tensor, FrameStats]:
+        """accumulate(), as n_stripes horizontal stripes of the
+        accumulator, each run into a histogram of its own rows.
+
+        A stripe's camera projects in full-frame coordinates
+        (`tile_row0`) and packs its records at the full frame's depth
+        (`layout_bins`), so with the same seed the stripes partition
+        the whole frame's trajectories exactly and the stitched
+        histogram equals accumulate()'s.  Every stripe replays the
+        whole trajectory stream: total_iters is n_stripes times the
+        whole frame's.  The last stripe's camera ends at the frame's
+        last row, so the plotted counts of the stripes add up to the
+        whole frame's (the JAX package gives every stripe the same
+        height and counts the points that land past the frame); a
+        stripe that would start past the last row is not run.  The junk
+        bin of the result stays 0.  Returns the logical (n_bins+1, 4)
+        histogram on the device and stats; ends in a device sync."""
+        prof, cam = self.profile, self.cam
+        stats = FrameStats()
+        full_h = cam.acc_height
+        th = -(-full_h // n_stripes)
+        full = hist_mod.alloc(cam.n_bins, self.device)
+        ts_times, ts_weights, _sumfilt = self._temporal_times(t)
+        t0 = time.perf_counter()
+        for s in range(-(-full_h // th)):
+            rows = min(th, full_h - s * th)
+            scam = dataclasses.replace(cam, tile_row0=s * th,
+                                       full_acc_height=full_h,
+                                       tile_acc_height=rows)
+            hist = hist_alloc_for(self.backend, scam.n_bins, self.device)
+            if len(ts_times) == 1:
+                params = params_from_genome(
+                    self.genome.eval_at(ts_times[0]), self.device)
+                hist, n_plot, n_iter = self._accumulate_sample(
+                    params, hist, seed=seed * 7919,
+                    iters=prof.total_iters, cam=scam)
+            else:
+                hist, n_plot, n_iter = self._accumulate_temporal(
+                    ts_times, ts_weights, hist, seed=seed * 7919,
+                    iters_per_sample=prof.total_iters / len(ts_times),
+                    cam=scam)
+            h_log = hist_to_logical(self.backend, hist, scam.n_bins)
+            _merge_stripe(full, h_log[:scam.n_bins], s * th, rows,
+                          cam.acc_width)
+            stats.plotted_samples += int(n_plot)
+            stats.total_iters += n_iter
+        sync(self.device)
+        stats.iterate_s = time.perf_counter() - t0
+        return full, stats
+
     def finalize_frame(self, hist, t: float = 0.0,
                        stats: Optional[FrameStats] = None) -> np.ndarray:
         """logscale -> DE -> downsample -> colorclip a logical
@@ -352,6 +506,57 @@ class Renderer:
             spatial_filter=self._static_sf,
             filter_shape=self.genome.spatial_filter_shape,
             earlyclip=self.genome.earlyclip)
+
+    def finalize_frame_banded(self, hist, t: float = 0.0,
+                              stats: Optional[FrameStats] = None,
+                              n_bands: int = 4,
+                              skip_empty: Optional[bool] = None
+                              ) -> np.ndarray:
+        """finalize_frame as n_bands horizontal bands, each filtered
+        with band_margin rows of context above and below (and, where
+        the DE takes its pyramid path, de.band_context's rows for the
+        DE), so only a band's images are live at once.  The output equals the
+        whole-frame filter's up to float reassociation (<= 1 u8 step
+        at rounding boundaries).  `skip_empty` (None: the
+        CUBURN_DE_SKIP_EMPTY env var, "1" for on) skips empty DE rungs,
+        one device sync each.  One device-to-host copy for all bands;
+        an opaque frame's alpha is filled on the host."""
+        prof, cam = self.profile, self.cam
+        t1 = time.perf_counter()
+        host_params = self.genome.eval_at(t)
+        params = params_from_genome(host_params, self.device)
+        _times, _w, sumfilt = self._temporal_times(t)
+        q_cell = torch.tensor(
+            np.float32(prof.quality * sumfilt / (cam.ss * cam.ss)),
+            device=self.device)
+        de_r = self._static_de_r
+        de_on = self._de_on(host_params)
+        sf = self._static_sf
+        shape = self.genome.spatial_filter_shape
+        ss, H, W = cam.ss, prof.height, prof.width
+        h_band = -(-H // n_bands)
+        margin = band_margin(de_on, de_r, sf, shape, ss)
+        if skip_empty is None:
+            skip_empty = os.environ.get("CUBURN_DE_SKIP_EMPTY") == "1"
+        himg = torch.as_tensor(hist, dtype=torch.float32) \
+            .to(self.device)[:-1].reshape(cam.acc_height, cam.acc_width, 4)
+        bands = _filter_banded_device(
+            himg, params, q_cell, n_bands, h_band * ss, margin, ss,
+            cam.gutter, prof.transparent, de_on,
+            de_r if de_r > 0 else 9.0, sf, shape,
+            skip_empty=bool(skip_empty),
+            earlyclip=self.genome.earlyclip).cpu().numpy()
+        out = np.zeros((H, W, 4), np.uint8)
+        if not prof.transparent:
+            out[..., 3] = 255
+        ch = bands.shape[-1]
+        for b in range(n_bands):
+            rows = min(h_band, H - b * h_band)
+            if rows > 0:
+                out[b * h_band:b * h_band + rows, :, :ch] = bands[b][:rows]
+        if stats is not None:
+            stats.filter_s = time.perf_counter() - t1
+        return out
 
     def _de_on(self, host_params) -> bool:
         return (self.profile.de_enabled and
@@ -401,9 +606,12 @@ class Renderer:
             batch //= 2
         return batch
 
-    def _accumulate_sample(self, params, hist, seed: int, iters: float):
-        """Run the chaos game for ~`iters` iterations into hist."""
-        prof, cam = self.profile, self.cam
+    def _accumulate_sample(self, params, hist, seed: int, iters: float,
+                           cam: Optional[CameraSpec] = None):
+        """Run the chaos game for ~`iters` iterations into hist through
+        `cam` (default the frame's camera; a stripe's for
+        accumulate_striped)."""
+        prof, cam = self.profile, cam or self.cam
         cdf_rows = xform_cdf_rows(params)
         batch = self._batch_for(iters)
         state = init_state(torch.Generator().manual_seed(seed), batch,
@@ -415,15 +623,17 @@ class Renderer:
         _state, hist, plotted = iterate_accumulate(
             self.key, cam, self.backend, params, cdf_rows, state, hist,
             ppu, n_chunks, prof.iters_per_chunk, prof.fuse,
-            op_bits=self.op_bits)
+            op_bits=self.op_bits, packed=self.packed)
         return hist, plotted, n_chunks * per_chunk
 
     def _accumulate_temporal(self, ts_times, ts_weights, hist,
-                             seed: int, iters_per_sample: float):
+                             seed: int, iters_per_sample: float,
+                             cam: Optional[CameraSpec] = None):
         """Run the chaos game for ~`iters_per_sample` iterations at each
-        of the T shutter times into hist, each sample's flushes scaled
-        by its temporal-filter weight."""
-        prof, cam = self.profile, self.cam
+        of the T shutter times into hist through `cam` (as in
+        _accumulate_sample), each sample's flushes scaled by its
+        temporal-filter weight."""
+        prof, cam = self.profile, cam or self.cam
         if self._packed_genome is None:
             self._packed_genome = pack_genome(self.genome, self.device)
         params_T = self._packed_genome.eval_params(
@@ -443,7 +653,7 @@ class Renderer:
         _state, hist, plotted = iterate_accumulate_temporal(
             self.key, cam, self.backend, params_T, state, hist, ppu_T,
             n_chunks, prof.iters_per_chunk, prof.fuse,
-            weights_T=weights, op_bits=self.op_bits)
+            weights_T=weights, op_bits=self.op_bits, packed=self.packed)
         return hist, plotted, n_chunks * per_chunk * T
 
     # -- animation -------------------------------------------------------
@@ -536,15 +746,25 @@ class Renderer:
     def frames_partitioned(self, seed: int = 0, n_stripes: int = 0,
                            n_bands: int = 0, overlap: bool = False
                            ) -> Iterator[Tuple[np.ndarray, FrameStats]]:
-        """frames(), or with `overlap` frames_overlapped() (the same
-        images).  Striped accumulation and banded filtering are not
-        ported: asking for either raises, here and not at the first
-        frame."""
-        if (n_stripes and n_stripes > 1) or (n_bands and n_bands > 1):
-            raise NotImplementedError(
-                "striped accumulation and banded filtering are not "
-                "ported yet (ROADMAP.md queue A item 11)")
-        if overlap:
+        """frames() through striped accumulation (n_stripes > 1) and/or
+        banded filtering (n_bands > 1), frame after frame.  With
+        neither it is frames(), and `overlap` switches to
+        frames_overlapped() (the same images); the partitioned paths
+        sync per stripe, so `overlap` does not apply to them."""
+        if overlap and n_stripes <= 1 and n_bands <= 1:
             return self.frames_overlapped(seed=seed)
-        return (self.render_frame(t, seed=seed + i)
+        return (self._render_partitioned(t, seed + i, n_stripes, n_bands)
                 for i, t in self.frame_times())
+
+    def _render_partitioned(self, t: float, seed: int, n_stripes: int,
+                            n_bands: int) -> Tuple[np.ndarray, FrameStats]:
+        """render_frame, striped when n_stripes > 1 and banded when
+        n_bands > 1."""
+        if n_stripes > 1:
+            hist, stats = self.accumulate_striped(t, seed, n_stripes)
+        else:
+            hist, stats = self.accumulate(t, seed)
+        if n_bands > 1:
+            return self.finalize_frame_banded(hist, t, stats,
+                                              n_bands=n_bands), stats
+        return self.finalize_frame(hist, t, stats), stats

@@ -469,11 +469,22 @@ def test_frames_partitioned_switches_loops(monkeypatch):
 
 @pytest.mark.parametrize("kw", [dict(n_stripes=2), dict(n_bands=2),
                                 dict(n_stripes=2, overlap=True)])
-def test_frames_partitioned_refuses_partitions(kw):
-    r = trender.Renderer(get_genome("sierpinski"), TProfile(**ANIM),
+def test_frames_partitioned_yields_partitioned_frames(kw, monkeypatch):
+    """Stripes or bands give every frame through the partitioned path
+    (`overlap` does not apply to it), each frame within one u8 step of
+    frames()'s (bit-identical when striped only)."""
+    r = trender.Renderer(get_genome("animated_spark"), TProfile(**ANIM),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        r.frames_partitioned(**kw)
+    monkeypatch.setattr(r, "frames_overlapped", None)
+    got = list(r.frames_partitioned(seed=3, **kw))
+    want = list(r.frames(seed=3))
+    assert len(got) == len(want) == 3
+    for (a, sa), (b, sb) in zip(got, want):
+        assert a.shape == b.shape == (48, 48, 4) and a[..., :3].any()
+        d = np.abs(a.astype(int) - b.astype(int)).max()
+        assert d == 0 if "n_bands" not in kw else d <= 1
+        assert sa.total_iters == kw.get("n_stripes", 1) * sb.total_iters
+        assert sa.plotted_samples == sb.plotted_samples
 
 
 def test_skip_keeps_frame_seeds():

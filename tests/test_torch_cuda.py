@@ -15,7 +15,8 @@ trajectories) agree by TV distance under the CPU's two-seed floor, a
 motion-blurred one too; every flush at a gaussian temporal filter's
 weights (0.011, 0.325) from a nonzero histogram within 1e-5 of the
 bin's density; overlapped frames equal serial ones bit for bit through
-the split flush.
+the split flush; a striped frame's density equal to the whole frame's
+in every bin, its flush kernels launched once a flush in every stripe.
 """
 
 import numpy as np
@@ -737,3 +738,55 @@ def test_overlapped_frames_within_one_lsb_through_win_flush(cuda):
     for (a, _), (b, _) in zip(r.frames(seed=2), r.frames_overlapped(seed=2)):
         assert a.shape == b.shape == (96, 128, 4)
         assert int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max()) <= 1
+
+
+# -- frame partitions: stripes through the kernels, unpacked records -------
+
+@pytest.mark.parametrize("backend,name", [
+    ("pallas_win", "win_flush"), ("pallas", "packed_flush"),
+    ("pallas_merged", "merged_flush"),
+    ("pallas_rgb16", "win_flush_rgb16")])
+def test_striped_render_equals_whole_frame(cuda, backend, name):
+    """Every stripe's flushes launch the kernel with the stripe's own
+    bin count as the junk bin; density (integer counts at weight 1.0) is
+    equal in every bin, rgb within 1e-5 of the bin's density, for the
+    split flush within one bf16 ulp a flush (a run summed across a tile
+    edge in one layout may round the other way)."""
+    prof = RenderProfile(width=128, height=128, quality=20, batch=8192,
+                         hist_backend=backend)
+    r = trender.Renderer(full_feature(), prof)
+    whole, sw = r.accumulate(0.0, seed=1)
+    flush.LAUNCHES[name] = 0
+    tiled_sort.LAUNCHES["bitonic_sort"] = 0
+    striped, ss = r.accumulate_striped(0.0, seed=1, n_stripes=4)
+    per_chunk = r._batch_for(prof.total_iters) * r.profile.iters_per_chunk
+    flushes = ss.total_iters // per_chunk
+    assert ss.total_iters == 4 * sw.total_iters and flushes % 4 == 0
+    assert flush.LAUNCHES[name] == flushes * (2 if name.endswith("16") else 1)
+    passes = len(tiled_sort.bitonic_schedule(
+        1 << (per_chunk - 1).bit_length()))
+    assert tiled_sort.LAUNCHES["bitonic_sort"] == \
+        (0 if backend == "pallas" else flushes * passes)
+    assert torch.equal(whole[:-1, 3], striped[:-1, 3])
+    assert float(striped[-1].abs().sum()) == 0.0
+    err = (whole[:-1, :3] - striped[:-1, :3]).abs()
+    tol = (flushes // 4 * 2.0 ** -7 * whole[:-1, :3].abs()
+           if backend == "pallas_rgb16"
+           else 1e-5 * whole[:-1, 3:].clamp(min=1.0))
+    assert bool((err <= tol).all())
+    assert ss.plotted_samples == sw.plotted_samples > 0
+
+
+def test_unpacked_frame_scatters_on_the_card(cuda, monkeypatch):
+    """A frame forced unpacked takes scatter (index_add_ of full
+    records) on the card; striped, its density equals the whole
+    frame's."""
+    monkeypatch.setattr(trender, "color_bits_for", lambda n_bins: 0)
+    prof = RenderProfile(width=128, height=128, quality=20, batch=8192)
+    r = trender.Renderer(full_feature(), prof)
+    assert r.packed is False and r.backend == "scatter"
+    whole, sw = r.accumulate(0.0, seed=1)
+    striped, ss = r.accumulate_striped(0.0, seed=1, n_stripes=2)
+    assert torch.equal(whole[:-1, 3], striped[:-1, 3])
+    assert float(whole[:-1, 3].sum()) == sw.plotted_samples == \
+        ss.plotted_samples > 0

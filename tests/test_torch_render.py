@@ -178,13 +178,40 @@ def test_cli_renders_a_still_on_cpu(tmp_path, capsys):
     assert "scatter on cpu" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--devices", "2"], ["--stripes", "2"],
-                                  ["--bands", "2"], ["--trace-dir", "tr"],
+@pytest.mark.parametrize("flag", [["--devices", "2"], ["--trace-dir", "tr"],
                                   ["--reduce-scatter"]])
 def test_cli_refuses_unported_flags(flag):
     from cuburn_tpu_torch import main as tmain
     with pytest.raises(SystemExit, match="not ported"):
         tmain.main(["gallery:sierpinski", "--cpu", *flag])
+
+
+@pytest.mark.parametrize("flag", [["--stripes", "3"], ["--bands", "3"]])
+def test_cli_partitions_a_still(flag, tmp_path):
+    """--stripes and --bands render the still of the whole frame: the
+    same histogram, a frame within one u8 step (the JAX package's
+    `test_banded_cli_matches_unbanded`)."""
+    from PIL import Image
+
+    from cuburn_tpu_torch import main as tmain
+    args = ["gallery:classic_swirl", "--cpu", "--width", "64", "--height",
+            "64", "--quality", "40"]
+    a, b = tmp_path / "whole.png", tmp_path / "part.png"
+    ha, hb = tmp_path / "whole.npy", tmp_path / "part.npy"
+    assert tmain.main(args + ["-o", str(a), "--save-hist", str(ha)]) == 0
+    assert tmain.main(args + ["-o", str(b), "--save-hist", str(hb),
+                              *flag]) == 0
+    np.testing.assert_array_equal(np.load(ha)[:-1], np.load(hb)[:-1])
+    ia, ib = (np.asarray(Image.open(p)).astype(int) for p in (a, b))
+    assert ia[..., :3].any() and np.abs(ia - ib).max() <= 1
+
+
+def test_cli_refuses_resume_with_stripes(tmp_path):
+    from cuburn_tpu_torch import main as tmain
+    with pytest.raises(SystemExit, match="not supported"):
+        tmain.main(["gallery:sierpinski", "--cpu", "-o",
+                    str(tmp_path / "x.png"), "--stripes", "2",
+                    "--resume-hist", "none.npy"])
 
 
 def test_renderer_backend_choice():
