@@ -98,6 +98,32 @@ CUDA toolkit.  Phases, each printed on its own line:
               gaussian) at 1080p, quality Q/4, through
               frames_partitioned(n_stripes=2, n_bands=2) against
               frames(): within one u8 step, twice the flushes
+ 11. sharded  parallel/shard.py and parallel/farm.py, full_feature at
+              1080p, quality Q/4, one process a rank (parallel.launch).
+              (a) one rank over NCCL on cuda:0: replicated, scattered
+              and stripe-parallel accumulation against Renderer from the
+              same seed (density equal in every bin, rgb within the
+              rounding of its sums, plotted counts equal, frames within
+              one u8 step), win_flush once a flush and the sort's passes
+              before each; one sharded frame through pallas,
+              pallas_merged and pallas_rgb16 for the launch counts;
+              iterate_s and filter_s of the one-device and the sharded
+              frame in turns.  (b) two ranks on the one card over gloo
+              with CUDA tensors: first a probe of the collectives gloo
+              runs on CUDA tensors; each check whose collectives gloo
+              refused is named and left out.  Replicated accumulate
+              against Renderer.accumulate through pallas_win, pallas,
+              pallas_merged and pallas_rgb16 (density equal, rgb within
+              its bound), the sharded band filter against
+              finalize_frame (the DE's pyramid path at 1080p), scattered
+              blocks against the replicated histogram's and the
+              scattered frame against the replicated one,
+              stripe-parallel against the whole frame, a motion-blurred
+              animated_spark frame (T = 4) against frames(), times in
+              turns.  (c) a FarmServer thread, a worker thread on
+              cuda:0 and a client: 3 frames of animated_spark, frame i
+              within one u8 step of Renderer.render_frame(t_i, seed + i).
+              It stops if the machine has more than one card.
 
 Then one JSON line describing each kernel, the nvidia-smi line, and
 last {"ok": true, "device": {...}}.  Any failed check exits non-zero
@@ -1342,6 +1368,383 @@ def phase_partition(torch, flush, sort, tiled_sort, thist, tit, write_image,
     return launches
 
 
+# -- phase 11: several ranks (parallel/shard.py, parallel/farm.py) ---------
+# Rank functions run in processes of their own (parallel.launch.spawn),
+# which import this file without running main(); each returns a dict of
+# plain values that the parent prints.
+
+# the collectives each 2-rank check needs, as the gloo probe names them
+GLOO_NEEDS = {
+    "replicated": ("all_reduce float32", "all_reduce float64"),
+    "replicated_rgb16": ("all_reduce float32", "all_reduce bfloat16",
+                         "all_reduce float64"),
+    "band_filter": ("all_gather_into_tensor uint8",),
+    "scattered": ("reduce_scatter_tensor float32", "all_reduce float64",
+                  "all_gather_into_tensor uint8",
+                  "all_gather_into_tensor float32"),
+    "striped": ("all_gather_into_tensor float32", "all_reduce float64"),
+    "motion_blur": ("all_reduce float32", "all_reduce float64",
+                    "all_gather_into_tensor uint8"),
+}
+
+
+def check_sharded_hist(torch, want, sw, got, sg, n, what, bf16_flushes=0):
+    """A sharded histogram (or block) against the one-device one from
+    the same seed: density (integer counts at weight 1.0) equal in every
+    bin; rgb within the rounding of its sums: a float32 sum of a bin's
+    d records rounds at most once an add and once a product in each
+    path, and the reduction once a rank, so (2d + n + 1) 2^-24 of the
+    larger value; the split flush rounds to bf16 once a flush in each of
+    F flushes and once a reduction, so (2F + n - 1) 2^-8.  Plotted counts
+    within 1e-6 (float32 running totals).  Returns the max rgb error."""
+    check(torch.equal(want[..., 3], got[..., 3]),
+          f"{what}: density differs from the one-device histogram")
+    a, b = want[..., :3].double(), got[..., :3].double()
+    larger = torch.maximum(a.abs(), b.abs())
+    tol = ((2 * bf16_flushes + n - 1) * 2.0 ** -8 * larger if bf16_flushes
+           else (2 * want[..., 3:].double() + n + 1) * 2.0 ** -24 * larger)
+    err = (a - b).abs()
+    check(bool((err <= tol).all()), f"{what}: rgb max err {float(err.max())}")
+    if sw is not None:
+        check(sw.plotted_samples > 0 and abs(sg.plotted_samples
+                                             - sw.plotted_samples)
+              <= 1e-6 * sw.plotted_samples,
+              f"{what}: plotted {sg.plotted_samples} sharded against "
+              f"{sw.plotted_samples} on one device")
+    return float(err.max())
+
+
+def u8_apart(a, b, what, max_share=1.0):
+    """(max u8 step, share of pixels apart) of two frames, checked to be
+    within one step and under `max_share` of pixels."""
+    import numpy as np
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    share = float((d > 0).any(-1).mean())
+    check(a.shape == b.shape and int(d.max()) <= 1 and share <= max_share,
+          f"{what}: {int(d.max())} u8 steps apart on {share:.4%} of pixels")
+    check(bool(a[..., :3].any()), f"{what}: a black frame")
+    return int(d.max()), share
+
+
+def sort_passes(tiled_sort, records):
+    """Launches of the tiled sort of one flush of `records` records."""
+    return len(tiled_sort.bitonic_schedule(1 << (records - 1).bit_length()))
+
+
+def rank_launches(flush, tiled_sort, fn):
+    """fn()'s result and the kernel launches it made in this rank."""
+    reset_launches(flush, tiled_sort)
+    out = fn()
+    return out, {k: v for k, v in launches_now(flush, tiled_sort).items()
+                 if v}
+
+
+def timed_in_turns(torch, one, sharded):
+    """iterate_s and filter_s of the one-device frame and the sharded
+    frame, rendered in turns: one, sharded, sharded, one."""
+    out = {"one_device": [], "sharded": []}
+    for name in ("one_device", "sharded", "sharded", "one_device"):
+        _img, st = (one if name == "one_device" else sharded)()
+        out[name].append({"iterate_s": st.iterate_s,
+                          "filter_s": st.filter_s})
+    return out
+
+
+def world_1_rank(rank, device, quality):
+    """Phase 11a: one rank over NCCL on cuda:0.  Replicated, scattered
+    and stripe-parallel modes against the one-device Renderer."""
+    import torch
+
+    from cuburn_tpu_torch.models import full_feature
+    from cuburn_tpu_torch.ops import flush, tiled_sort
+    from cuburn_tpu_torch.parallel.shard import ShardedRenderer
+    from cuburn_tpu_torch.profile import get_profile
+    from cuburn_tpu_torch.render import Renderer
+    prof = get_profile("1080p", quality=quality)
+    one = Renderer(full_feature(), prof, device)
+    sh = ShardedRenderer(full_feature(), prof, device)
+    check(sh.backend == "pallas_win" and sh.n_devices == 1,
+          f"11a: backend {sh.backend}, {sh.n_devices} ranks")
+    want, sw = one.accumulate(0.0, seed=3)
+    (got, sg), launches = rank_launches(
+        flush, tiled_sort, lambda: sh.accumulate(0.0, seed=3))
+    per_chunk = sh._batch_for(prof.total_iters) * sh.profile.iters_per_chunk
+    flushes = sg.total_iters // per_chunk
+    passes = sort_passes(tiled_sort, per_chunk)
+    check(launches == {"win_flush": flushes,
+                       "bitonic_sort": flushes * passes},
+          f"11a: launches {launches} for {flushes} flushes")
+    out = {"flushes": flushes, "sort_passes_per_flush": passes,
+           "launches_sharded": {"pallas_win": launches}, "rgb_max_abs_err": {
+               "replicated": check_sharded_hist(
+                   torch, want[:-1], sw, got[:-1], sg, 1, "11a replicated")}}
+    img1 = one.finalize_frame(want, 0.0)
+    out["u8_apart"] = {"replicated": u8_apart(
+        img1, sh.finalize_frame(got, 0.0), "11a replicated frame")}
+    block, sb = sh.accumulate_scattered(0.0, seed=3)
+    _h, layout = sh._band_layout(1, True)
+    img = want[:-1].reshape(sh.cam.acc_height, sh.cam.acc_width, 4)
+    out["rgb_max_abs_err"]["scattered"] = check_sharded_hist(
+        torch, layout.blocks(img)[0], sw, block, sb, 1, "11a scattered")
+    out["u8_apart"]["scattered"] = u8_apart(
+        img1, sh.finalize_frame_scattered(block, 0.0), "11a scattered frame")
+    striped, ss = sh.accumulate_striped(0.0, seed=3)
+    out["rgb_max_abs_err"]["striped"] = check_sharded_hist(
+        torch, want[:-1], sw, striped[:-1], ss, 1, "11a stripe-parallel")
+    del want, got, block, striped, img
+    # one sharded frame through each other flush kernel
+    for backend in ("pallas", "pallas_merged", "pallas_rgb16"):
+        rb = ShardedRenderer(full_feature(), get_profile(
+            "1080p", quality=quality, hist_backend=backend), device)
+        (_h, st), out["launches_sharded"][backend] = rank_launches(
+            flush, tiled_sort, lambda: rb.accumulate(0.0, seed=4))
+        check(st.plotted_samples > 0, f"11a {backend}: nothing plotted")
+    out["times"] = timed_in_turns(
+        torch, lambda: one.render_frame(0.0, seed=5),
+        lambda: sh.render_frame(0.0, seed=5))
+    out["collectives"] = {
+        "nccl": ["all_reduce float32", "all_reduce float64",
+                 "reduce_scatter_tensor float32",
+                 "all_gather_into_tensor float32",
+                 "all_gather_into_tensor uint8"]}
+    return out
+
+
+def probe_gloo_cuda(torch, dist, device, rank):
+    """{collective: None where gloo ran it on CUDA tensors and gave the
+    right sums, else why not}, the same on both ranks."""
+    n = dist.get_world_size()
+
+    def reduce(dtype):
+        x = torch.ones(8, dtype=dtype, device=device)
+        dist.all_reduce(x)
+        return bool((x == n).all())
+
+    def scatter():
+        out = torch.empty(4, device=device)
+        dist.reduce_scatter_tensor(out, torch.ones(4 * n, device=device))
+        return bool((out == n).all())
+
+    def gather(dtype):
+        out = torch.empty(4 * n, dtype=dtype, device=device)
+        dist.all_gather_into_tensor(
+            out, torch.full((4,), rank, dtype=dtype, device=device))
+        return out.cpu().tolist() == [float(k) if dtype.is_floating_point
+                                      else k for k in range(n)
+                                      for _ in range(4)]
+    probes = {
+        "all_reduce float32": lambda: reduce(torch.float32),
+        "all_reduce float64": lambda: reduce(torch.float64),
+        "all_reduce bfloat16": lambda: reduce(torch.bfloat16),
+        "reduce_scatter_tensor float32": scatter,
+        "all_gather_into_tensor float32": lambda: gather(torch.float32),
+        "all_gather_into_tensor uint8": lambda: gather(torch.uint8),
+    }
+    out = {}
+    for name, fn in probes.items():
+        try:
+            out[name] = None if fn() else "wrong result"
+        except (RuntimeError, ValueError, TypeError) as e:
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    # the ranks agree on what ran (a CPU tensor: gloo always takes those)
+    ok = torch.tensor([v is None for v in out.values()], dtype=torch.int64)
+    dist.all_reduce(ok)
+    return {k: (None if int(c) == n else (v or "refused on another rank"))
+            for (k, v), c in zip(out.items(), ok)}
+
+
+def world_2_rank(rank, device, quality):
+    """Phase 11b: two ranks on cuda:0 over gloo with CUDA tensors."""
+    import torch
+    import torch.distributed as dist
+
+    from cuburn_tpu_torch.models import animated_spark, full_feature
+    from cuburn_tpu_torch.ops import flush, tiled_sort
+    from cuburn_tpu_torch.parallel.shard import ShardedRenderer, _gather
+    from cuburn_tpu_torch.profile import get_profile
+    from cuburn_tpu_torch.render import FrameStats, Renderer
+    n = dist.get_world_size()
+    probe = probe_gloo_cuda(torch, dist, device, rank)
+    runs = {k: all(probe[c] is None for c in need)
+            for k, need in GLOO_NEEDS.items()}
+    out = {"probe": probe, "left_out": {
+        k: {c: probe[c] for c in GLOO_NEEDS[k] if probe[c]}
+        for k, ok in runs.items() if not ok},
+        "rgb_max_abs_err": {}, "u8_apart": {}, "launches_sharded": {}}
+    me = rank == 0          # rank 0 renders the one-device references
+
+    def one_device(fn):
+        """fn() on rank 0 alone; rank 1 waits."""
+        res = fn() if me else None
+        dist.barrier()
+        return res
+
+    prof = get_profile("1080p", quality=quality)
+    sh = ShardedRenderer(full_feature(), prof, device)
+    one = Renderer(full_feature(), prof, device)
+    want = sw = None
+    if runs["replicated"]:
+        for backend in ("pallas_win", "pallas", "pallas_merged",
+                        "pallas_rgb16"):
+            if backend == "pallas_rgb16" and not runs["replicated_rgb16"]:
+                continue
+            bp = get_profile("1080p", quality=quality, hist_backend=backend)
+            rb = ShardedRenderer(full_feature(), bp, device)
+            w, s = one_device(lambda: Renderer(full_feature(), bp, device)
+                              .accumulate(0.0, seed=3)) or (None, None)
+            (got, sg), out["launches_sharded"][backend] = rank_launches(
+                flush, tiled_sort, lambda: rb.accumulate(0.0, seed=3))
+            per_chunk = rb._batch_for(bp.total_iters) \
+                * rb.profile.iters_per_chunk
+            if backend == "pallas_win":
+                flushes = sg.total_iters // per_chunk
+                passes = sort_passes(tiled_sort, per_chunk // n)
+                check(out["launches_sharded"][backend] == {
+                    "win_flush": flushes, "bitonic_sort": flushes * passes},
+                    f"11b rank {rank}: launches "
+                    f"{out['launches_sharded'][backend]} for {flushes} "
+                    f"flushes of {per_chunk // n} records")
+            if me:
+                out["rgb_max_abs_err"][backend] = check_sharded_hist(
+                    torch, w[:-1], s, got[:-1], sg, n, f"11b {backend}",
+                    bf16_flushes=(sg.total_iters // per_chunk
+                                  if backend == "pallas_rgb16" else 0))
+            if backend == "pallas_win":
+                want, sw, hist = w, s, got
+            del w, got
+    img_rep = None
+    if runs["replicated"] and runs["band_filter"]:
+        # the sharded band filter on the pyramid (1080p is 3896 wide)
+        img_rep = sh.finalize_frame(hist, 0.0)
+        if me:
+            out["u8_apart"]["band_filter"] = u8_apart(
+                one.finalize_frame(hist, 0.0), img_rep, "11b band filter",
+                max_share=0.005)
+        _h, layout = sh._band_layout(n, True)
+        out["band_windows"] = {"margin": layout.margin, "ctx": layout.ctx,
+                               "windows": layout.windows}
+    if runs["scattered"] and img_rep is not None:
+        block, sb = sh.accumulate_scattered(0.0, seed=3)
+        img_sc = sh.finalize_frame_scattered(block, 0.0)
+        blocks = _gather(block)       # every rank's block, for the check
+        if me:
+            _h, layout = sh._band_layout(n, True)
+            ref = layout.blocks(hist[:-1].reshape(
+                sh.cam.acc_height, sh.cam.acc_width, 4))
+            out["rgb_max_abs_err"]["scattered_blocks"] = max(
+                check_sharded_hist(torch, ref[k], None, blocks[k], None, n,
+                                   f"11b scattered block {k}")
+                for k in range(n))
+            out["u8_apart"]["scattered"] = u8_apart(
+                img_rep, img_sc, "11b scattered against replicated frame")
+        del block, blocks
+    if runs["striped"]:
+        striped, ss = sh.accumulate_striped(0.0, seed=3)
+        if me and want is not None:
+            out["rgb_max_abs_err"]["striped"] = check_sharded_hist(
+                torch, want[:-1], sw, striped[:-1], ss, n,
+                "11b stripe-parallel")
+        del striped
+    if runs["motion_blur"]:
+        bp = get_profile("1080p", quality=quality,
+                         temporal_samples=ANIM_SAMPLES, fps=4.0,
+                         duration=0.25)
+        (got,) = list(ShardedRenderer(spark(animated_spark), bp,
+                                      device).frames(seed=1))
+        ref = one_device(lambda: list(Renderer(
+            spark(animated_spark), bp, device).frames(seed=1))[0])
+        if me:
+            out["u8_apart"]["motion_blur"] = u8_apart(
+                ref[0], got[0], "11b motion-blurred frame")
+    if runs["replicated"] and runs["band_filter"]:
+        out["times"] = timed_in_turns(
+            torch, lambda: one_device(lambda: one.render_frame(0.0, seed=5))
+            or (None, FrameStats()), lambda: sh.render_frame(0.0, seed=5))
+    return out
+
+
+def phase_farm(torch, write_image, Renderer, animated_spark, get_profile,
+               quality):
+    """Phase 11c: a FarmServer thread, one worker thread on cuda:0 and a
+    client, 3 frames of animated_spark at 1080p; frame i within one u8
+    step of Renderer.render_frame(t_i, seed=seed + i)."""
+    import threading
+
+    from cuburn_tpu_torch.genome.specs import Genome
+    from cuburn_tpu_torch.parallel import farm
+    g = spark(animated_spark)
+    prof = get_profile("1080p", quality=quality, fps=4.0, duration=0.75)
+    times = [t for _i, t in Renderer(g, prof).frame_times()]
+    check(len(times) == 3, f"11c: {len(times)} frames")
+    server = farm.FarmServer()
+    server.serve_background()
+    try:
+        client = farm.FarmClient(server.address)
+        t0 = time.perf_counter()
+        ids = client.submit_animation(g, prof, times, seed=7)
+        worker = threading.Thread(target=farm.run_worker,
+                                  args=(server.address, "cuda:0"),
+                                  kwargs={"max_tasks": len(ids)})
+        worker.start()
+        frames = [client.fetch(i, timeout=300) for i in ids]
+        farm_s = time.perf_counter() - t0
+        worker.join(timeout=60)
+        check(not worker.is_alive(), "11c: the worker did not finish")
+        client.close()
+    finally:
+        server.shutdown()
+    ref = Renderer(Genome.from_json(g.to_json()), prof)
+    apart = [u8_apart(ref.render_frame(t, seed=7 + i)[0], f,
+                      f"11c farm frame {i}")
+             for i, (t, f) in enumerate(zip(times, frames))]
+    check(not (frames[0] == frames[2]).all(), "11c: frame 0 equals frame 2")
+    os.makedirs(os.path.join(REPO, "smoke_out"), exist_ok=True)
+    png = os.path.join(REPO, "smoke_out", "chip_smoke_farm_2.png")
+    write_image(png, frames[2])
+    phase(11, "sharded", part="c", genome="animated_spark", profile="1080p",
+          quality=quality, frames=len(frames), times=times, seeds=[7, 8, 9],
+          wall_s=farm_s, u8_apart=apart, png=os.path.relpath(png, REPO))
+
+
+def phase_sharded(torch, write_image, Renderer, animated_spark,
+                  get_profile, quality):
+    """Phase 11: the sharded renderer in one rank over NCCL (a) and in
+    two ranks on the one card over gloo (b), then the farm (c).  Returns
+    the launches of each kernel in one sharded frame of one rank."""
+    from cuburn_tpu_torch.parallel import launch
+    check(torch.cuda.device_count() == 1,
+          f"phase 11 plans for one card; this machine has "
+          f"{torch.cuda.device_count()}")
+    torch.cuda.empty_cache()
+    q = max(quality // 4, 1)
+    results = {}
+    for part, fn, devices, backend in (
+            ("a", world_1_rank, ["cuda:0"], "nccl"),
+            ("b", world_2_rank, ["cuda:0", "cuda:0"], "gloo")):
+        try:
+            results[part] = launch.spawn(fn, devices, backend, q,
+                                         timeout_s=300)
+        except (torch.multiprocessing.ProcessRaisedException,
+                torch.multiprocessing.ProcessExitedException) as e:
+            check(False, f"phase 11{part}: a rank failed: {e}")
+        r0 = results[part][0]
+        phase(11, "sharded", part=part, genome="full_feature",
+              profile="1080p", quality=q, backend=backend,
+              ranks=len(devices), devices=devices,
+              **{k: v for k, v in r0.items() if k != "times"},
+              launches_sharded_per_rank=[r["launches_sharded"]
+                                         for r in results[part]])
+        if "times" in r0:
+            phase(11, "sharded", part=f"{part}_times", backend=backend,
+                  ranks=len(devices), **r0["times"])
+    phase_farm(torch, write_image, Renderer, animated_spark, get_profile, q)
+    a = results["a"][0]["launches_sharded"]
+    return {FLUSH_KERNEL[b]: n[FLUSH_KERNEL[b]] for b, n in a.items()} | {
+        "bitonic_sort": a["pallas_win"]["bitonic_sort"]}
+
+
 def build_all(build):
     """Every kernel library, one nvcc each, all started together."""
     libs = sorted({lib for lib, _ in KERNELS.values()})
@@ -1429,12 +1832,16 @@ def main(argv=None) -> int:
     part_launches = phase_partition(
         torch, flush, sort, tiled_sort, thist, tit, write_image, Renderer,
         full_feature, animated_spark, get_profile, args.quality)
+    sharded_launches = phase_sharded(torch, write_image, Renderer,
+                                     animated_spark, get_profile,
+                                     args.quality)
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu",
         "replaces": replaces, "launches": launches[name],
         "launches_animation": anim_launches[name],
         "launches_partitioned": part_launches[name],
+        "launches_sharded": sharded_launches[name],
         "max_abs_err": errs[name], "ms": times[name]["ms"],
         "device_ms": times[name]["device_ms"],
         "plain_ms": times[name]["plain_ms"],

@@ -25,7 +25,9 @@ counterpart for sm_90a in `csrc/`, built at first use by
   ops/          — RNG, camera, variations, xforms, iterate, sort,
                   flush, histogram, filtering, density estimation
   render.py     — Renderer.render_frame: accumulate, then filter
-  main.py       — the `cuburn-tpu-torch` command line (stills)
+  parallel/     — a frame over several devices, one process each
+                  (shard.py, launch.py), and the frame farm (farm.py)
+  main.py       — the `cuburn-tpu-torch` command line
 """
 
 __version__ = "0.1.0"

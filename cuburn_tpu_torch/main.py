@@ -11,10 +11,14 @@ that module's argument parser, genome loader and metrics records:
     cuburn-tpu-torch a.flam3 --blend b.flam3 --animate -o edge.mp4
     cuburn-tpu-torch gallery:full_feature -o big.png --profile 4k \
         --stripes 2 --bands 4
+    cuburn-tpu-torch gallery:full_feature -o out.png --devices 4 \
+        [--reduce-scatter]
 
 The render runs on CUDA unless `--cpu` asks for the CPU; without a GPU
-the CUDA default fails instead of falling back.
-Flags for paths the port does not have yet are refused.
+the CUDA default fails instead of falling back.  `--devices N` shards
+each frame over N processes, one a device (`parallel/shard.py`): N GPUs
+over NCCL, or with `--cpu` N CPU processes over gloo; rank 0 writes the
+output.  `--trace-dir` is not ported yet and is refused.
 """
 
 from __future__ import annotations
@@ -89,8 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="append one JSON metrics record per frame to "
                         "this file (SURVEY.md §5 observability)")
     p.add_argument("--devices", type=int,
-                   help="shard the frame across N local devices "
-                        "(not ported yet)")
+                   help="shard the frame across N local devices, one "
+                        "process each (trajectory DP + histogram "
+                        "all_reduce)")
     p.add_argument("--reduce-scatter", action="store_true",
                    help="with --devices N: reduce-scatter the "
                         "histogram instead of replicating it (each "
@@ -175,33 +180,34 @@ def load_genome(spec: str, index: int, angle_units: str = ""):
 
 
 def _refuse_unported(args) -> None:
-    refused = [
-        ("--devices", args.devices is not None and args.devices > 1),
-        ("--reduce-scatter", args.reduce_scatter),
-        ("--trace-dir", args.trace_dir is not None),
-    ]
-    for flag, used in refused:
-        if used:
-            raise SystemExit(
-                f"cuburn-tpu-torch: {flag} is not ported yet (one "
-                "device only; see ROADMAP.md queue A)")
+    if args.trace_dir is not None:
+        raise SystemExit(
+            "cuburn-tpu-torch: --trace-dir is not ported yet (see "
+            "ROADMAP.md queue A)")
 
 
-def _animate(args, renderer, sequence, output_mod) -> None:
+def _animate(args, renderer, sequence, output_mod, write: bool) -> None:
     """Render the genome's time range (or every edge of a keyframe
-    sequence) into a video sink."""
+    sequence) into a video sink; `write` False renders the frames
+    (a rank of a sharded render) and writes nothing."""
     prof = renderer.profile
-    sink = output_mod.make_video_sink(
-        args.output, prof.width, prof.height, prof.fps)
+    sink = (output_mod.make_video_sink(args.output, prof.width,
+                                       prof.height, prof.fps)
+            if write else None)
     n = 0
     t0 = time.time()
 
     def run_frames(r, seed):
         # the overlapped frame loop is the default: the same images, and
         # the host encodes frame N-1 while the device works on N
+        overlap = not args.no_overlap
+        if args.reduce_scatter:
+            if overlap:
+                return r.frames_overlapped_scattered(seed=seed)
+            return (r.render_frame_scattered(t, seed=seed + i)
+                    for i, t in r.frame_times())
         return r.frames_partitioned(seed=seed, n_stripes=args.stripes,
-                                    n_bands=args.bands,
-                                    overlap=not args.no_overlap)
+                                    n_bands=args.bands, overlap=overlap)
 
     def frame_iter():
         if sequence is None:
@@ -209,13 +215,17 @@ def _animate(args, renderer, sequence, output_mod) -> None:
             return
         total_len = sequence[-1][2] - sequence[0][1]
         total_s = prof.duration or 2.0 * len(sequence)
+        # a sharded renderer's segments keep its process group
+        group = ({"group": renderer.group} if hasattr(renderer, "group")
+                 else {})
         for k, (edge, s, e) in enumerate(sequence):
             # segment wall time proportional to its keyframe span
             # (flam3 `time` attributes set the spacing)
             seg_prof = dataclasses.replace(
                 prof, duration=total_s * (e - s) / total_len)
             frames = run_frames(
-                type(renderer)(edge, seg_prof, device=renderer.device),
+                type(renderer)(edge, seg_prof, device=renderer.device,
+                               **group),
                 args.seed + k)
             if k > 0:
                 # each edge spans [0, 1] inclusive and edge k's t=1
@@ -227,8 +237,10 @@ def _animate(args, renderer, sequence, output_mod) -> None:
 
     try:
         for img, stats in frame_iter():
-            sink.write_frame(img)
             n += 1
+            if not write:
+                continue
+            sink.write_frame(img)
             if args.stats:
                 print(f"frame {n}: {stats.samples_per_sec/1e6:.1f} "
                       f"Msamples/s, retention "
@@ -237,10 +249,93 @@ def _animate(args, renderer, sequence, output_mod) -> None:
                 _append_metrics(args.metrics_json,
                                 _stats_record(n, None, stats))
     finally:
-        sink.close()
+        if sink is not None:
+            sink.close()
     dt = time.time() - t0
-    print(f"wrote {n} frames to {args.output} in {dt:.1f}s "
-          f"({n / max(dt, 1e-9):.2f} fps)")
+    if write:
+        print(f"wrote {n} frames to {args.output} in {dt:.1f}s "
+              f"({n / max(dt, 1e-9):.2f} fps)")
+
+
+def _still(args, renderer, output_mod, write: bool) -> None:
+    """Render one frame at --time and write it; `write` as in
+    _animate."""
+    import numpy as np
+
+    hist0 = None
+    if args.resume_hist:
+        try:
+            hist0 = np.load(args.resume_hist)
+        except FileNotFoundError:
+            raise SystemExit(
+                f"resume histogram not found: {args.resume_hist}")
+    if args.reduce_scatter:
+        img, stats = renderer.render_frame_scattered(args.time,
+                                                     seed=args.seed)
+    else:
+        if args.stripes > 1:
+            hist, stats = renderer.accumulate_striped(
+                args.time, args.seed, n_stripes=args.stripes)
+        else:
+            hist, stats = renderer.accumulate(args.time, args.seed,
+                                              hist0=hist0)
+        if args.save_hist and write:
+            np.save(args.save_hist, hist.cpu().numpy())
+        if args.bands > 1:
+            img = renderer.finalize_frame_banded(hist, args.time, stats,
+                                                 n_bands=args.bands)
+        else:
+            img = renderer.finalize_frame(hist, args.time, stats)
+    if not write:
+        return
+    output_mod.write_image(args.output, img)
+    if args.stats:
+        print(f"iterate {stats.iterate_s * 1e3:.1f} ms "
+              f"({stats.samples_per_sec / 1e6:.1f} Msamples/s, "
+              f"retention {stats.retention:.2f}); "
+              f"filters {stats.filter_s * 1e3:.1f} ms "
+              f"[{renderer.backend} on {renderer.device}]",
+              file=sys.stderr)
+    if args.metrics_json:
+        _append_metrics(args.metrics_json,
+                        _stats_record(0, args.time, stats))
+    print(f"wrote {args.output}")
+
+
+def _render(args, renderer, sequence, write: bool) -> None:
+    from cuburn_tpu_torch import output as output_mod
+    if args.animate:
+        _animate(args, renderer, sequence, output_mod, write)
+    else:
+        _still(args, renderer, output_mod, write)
+
+
+def _render_rank(rank, device, args, genome, sequence, prof) -> None:
+    """One rank of `--devices N`: the same calls as every other rank;
+    rank 0 writes."""
+    from cuburn_tpu_torch.parallel.shard import ShardedRenderer
+    _render(args, ShardedRenderer(genome, prof, device), sequence,
+            write=rank == 0)
+
+
+def _sharded_devices(args):
+    """(devices, backend) of `--devices N`: N CPU processes over gloo
+    with --cpu, else the first N GPUs over NCCL."""
+    import torch
+
+    from cuburn_tpu_torch.device import resolve_device
+    n = args.devices
+    if args.cpu:
+        return ["cpu"] * n, "gloo"
+    try:
+        resolve_device("cuda")
+    except RuntimeError as e:       # no GPU: say so, do not fall back
+        raise SystemExit(f"cuburn-tpu-torch: --devices {n}: {e}")
+    have = torch.cuda.device_count()
+    if n > have:
+        raise SystemExit(f"cuburn-tpu-torch: --devices {n} needs {n} GPUs; "
+                         f"this machine has {have}")
+    return [f"cuda:{i}" for i in range(n)], "nccl"
 
 
 def main(argv=None) -> int:
@@ -278,14 +373,20 @@ def main(argv=None) -> int:
         raise SystemExit(
             "--save-hist/--resume-hist/--time apply to stills; "
             "they have no effect with --animate")
+    if args.reduce_scatter:
+        if not (args.devices and args.devices > 1):
+            raise SystemExit("--reduce-scatter requires --devices N>1")
+        if (args.stripes > 1 or args.bands > 1
+                or args.save_hist or args.resume_hist):
+            raise SystemExit(
+                "--reduce-scatter is incompatible with stripes/bands/"
+                "checkpoints — each chip never holds a full "
+                "histogram")
     if args.resume_hist and args.stripes > 1:
         raise SystemExit(
             "--resume-hist is not supported with --stripes (striped "
             "accumulation rebuilds the histogram from scratch)")
 
-    import numpy as np
-
-    from cuburn_tpu_torch import output as output_mod
     from cuburn_tpu_torch.profile import get_profile
     from cuburn_tpu_torch.device import resolve_device
     from cuburn_tpu_torch.render import Renderer
@@ -306,47 +407,26 @@ def main(argv=None) -> int:
     if args.no_de:
         overrides["de_enabled"] = False
     prof = get_profile(args.profile, **overrides)
+
+    if args.devices and args.devices > 1:
+        import torch.multiprocessing
+
+        from cuburn_tpu_torch.parallel import launch
+        devices, backend = _sharded_devices(args)
+        try:
+            launch.spawn(_render_rank, devices, backend, args, genome,
+                         sequence, prof)
+        except (torch.multiprocessing.ProcessRaisedException,
+                torch.multiprocessing.ProcessExitedException) as e:
+            raise SystemExit(f"cuburn-tpu-torch: a rank of --devices "
+                             f"{args.devices} failed: {e}")
+        return 0
     try:
         device = resolve_device("cpu" if args.cpu else "cuda")
     except RuntimeError as e:       # no GPU: say so, do not fall back
         raise SystemExit(f"cuburn-tpu-torch: {e}")
-    renderer = Renderer(genome, prof, device=device)
-    if args.animate:
-        _animate(args, renderer, sequence, output_mod)
-        return 0
-
-    hist0 = None
-    if args.resume_hist:
-        try:
-            hist0 = np.load(args.resume_hist)
-        except FileNotFoundError:
-            raise SystemExit(
-                f"resume histogram not found: {args.resume_hist}")
-    if args.stripes > 1:
-        hist, stats = renderer.accumulate_striped(
-            args.time, args.seed, n_stripes=args.stripes)
-    else:
-        hist, stats = renderer.accumulate(args.time, args.seed,
-                                          hist0=hist0)
-    if args.save_hist:
-        np.save(args.save_hist, hist.cpu().numpy())
-    if args.bands > 1:
-        img = renderer.finalize_frame_banded(hist, args.time, stats,
-                                             n_bands=args.bands)
-    else:
-        img = renderer.finalize_frame(hist, args.time, stats)
-    output_mod.write_image(args.output, img)
-    if args.stats:
-        print(f"iterate {stats.iterate_s * 1e3:.1f} ms "
-              f"({stats.samples_per_sec / 1e6:.1f} Msamples/s, "
-              f"retention {stats.retention:.2f}); "
-              f"filters {stats.filter_s * 1e3:.1f} ms "
-              f"[{renderer.backend} on {renderer.device}]",
-              file=sys.stderr)
-    if args.metrics_json:
-        _append_metrics(args.metrics_json,
-                        _stats_record(0, args.time, stats))
-    print(f"wrote {args.output}")
+    _render(args, Renderer(genome, prof, device=device), sequence,
+            write=True)
     return 0
 
 

@@ -216,43 +216,111 @@ def _merge_stripe(full, stripe, row0: int, rows: int, acc_w: int):
     return full
 
 
-def _filter_banded_device(himg, params, quality_per_cell, n_bands: int,
-                          band_rows: int, margin: int, ss: int,
-                          gutter_x: int, transparent: bool, de_on: bool,
-                          de_static_r: float, spatial_filter: float,
-                          filter_shape: str, skip_empty: bool = False,
-                          earlyclip: bool = False):
-    """Every band of finalize_frame_banded on the device: the
-    (acc_h, acc_w, 4) image zero-padded by `margin` rows above (and
-    below as far as the last band needs), then one _filter_band per
-    band start.  Where the DE takes the pyramid path, a band also
-    carries de_mod.band_context's rows above and below for the DE
-    alone, its first row on a multiple of the pyramid's block height
-    from the accumulator's row 0, as the whole frame's blocks lie.
-    Returns (n_bands, band_rows/ss, W, C) u8, C = 3 for opaque output
-    (alpha is the constant the host fills in), 4 for transparent."""
-    acc_h, acc_w = himg.shape[0], himg.shape[1]
-    need_h = gutter_x + n_bands * band_rows + 2 * margin
-    pad_bot = max(0, need_h - margin - acc_h)
+def stripe_cameras(cam: CameraSpec, n_stripes: int):
+    """The camera of every stripe of `cam`'s accumulator cut into
+    n_stripes horizontal stripes of ceil(acc_h / n_stripes) rows.  A
+    stripe projects in full-frame coordinates (`tile_row0`) and packs
+    its records at the full frame's depth (`layout_bins`); the last
+    stripe's camera ends at the frame's last row, and a stripe that
+    would start past the last row is left out."""
+    full_h = cam.acc_height
+    th = -(-full_h // n_stripes)
+    return [dataclasses.replace(cam, tile_row0=s * th, full_acc_height=full_h,
+                                tile_acc_height=min(th, full_h - s * th))
+            for s in range(-(-full_h // th))]
+
+
+@dataclass(frozen=True)
+class BandLayout:
+    """The accumulator rows each band of a banded filter reads.
+
+    Band b is rows [r0, r1) of the accumulator: its band_rows with
+    `margin` context rows above and below, which the downsample drops.
+    Its DE reads rows [d0, r1 + ctx): where the DE takes the pyramid
+    path, de_mod.band_context's rows above and below, d0 on a multiple
+    of the pyramid's block height from the accumulator's row 0, as the
+    whole frame's blocks lie (ctx 0 and d0 = r0 elsewhere).  `top` and
+    `bottom` zero rows padded above and below the image hold every
+    window."""
+    margin: int
+    ctx: int
+    top: int
+    bottom: int
+    windows: Tuple[Tuple[int, int, int], ...]     # (d0, r0, r1) a band
+
+    def window_rows(self, b: int) -> int:
+        d0, _r0, r1 = self.windows[b]
+        return r1 + self.ctx - d0
+
+    @property
+    def block_rows(self) -> int:
+        """The longest window: every band's block when all the blocks
+        take one shape."""
+        return max(self.window_rows(b) for b in range(len(self.windows)))
+
+    def pad(self, himg, extra: int = 0):
+        """The (acc_h, acc_w, C) image with its zero rows (and `extra`
+        more below); accumulator row r sits at r + top."""
+        return F.pad(himg, (0, 0, 0, 0, self.top, self.bottom + extra))
+
+    def blocks(self, himg):
+        """(n_bands, block_rows, acc_w, C): band b's block starts at its
+        d0 and runs block_rows rows, past its window where another
+        window is longer."""
+        rows = self.block_rows
+        padded = self.pad(himg, rows - min(
+            self.window_rows(b) for b in range(len(self.windows))))
+        return torch.stack([padded[d0 + self.top:d0 + self.top + rows]
+                            for d0, _r0, _r1 in self.windows])
+
+
+def band_layout(n_bands: int, band_rows: int, margin: int, gutter: int,
+                acc_h: int, acc_w: int, de_on: bool,
+                de_static_r: float) -> BandLayout:
+    """The rows of n_bands bands of band_rows accumulator rows each,
+    the first starting at the gutter, with `margin` rows of context
+    (band_margin) and, where the DE takes the pyramid path, its
+    context too (de_mod.band_context)."""
     ctx, align = (de_mod.band_context(de_static_r, acc_w) if de_on
                   else (0, 1))
-    top = margin + ctx + align - 1
-    padded = F.pad(himg, (0, 0, 0, 0, top, pad_bot + ctx))
-    bands = []
+    need_h = gutter + n_bands * band_rows + 2 * margin
+    windows = []
     for b in range(n_bands):
-        # accumulator rows [r0, r1) are the band with its margin rows;
-        # [d0, r1 + ctx) adds the DE's context, d0 on the block grid.
-        # Row r of himg sits at r + top in `padded`.
-        r0 = gutter_x - margin + band_rows * b
-        r1 = r0 + band_rows + 2 * margin
-        d0 = (r0 - ctx) // align * align
-        out = _filter_band(
-            padded[d0 + top:r1 + ctx + top], params, quality_per_cell, ss,
-            margin, gutter_x, transparent, de_on, de_static_r,
-            spatial_filter, filter_shape, skip_empty=skip_empty,
-            earlyclip=earlyclip, de_rows=(r0 - d0, ctx))
-        bands.append(out if transparent else out[..., :3])
-    return torch.stack(bands)
+        r0 = gutter - margin + band_rows * b
+        windows.append(((r0 - ctx) // align * align, r0,
+                        r0 + band_rows + 2 * margin))
+    return BandLayout(margin=margin, ctx=ctx, top=margin + ctx + align - 1,
+                      bottom=max(0, need_h - margin - acc_h) + ctx,
+                      windows=tuple(windows))
+
+
+def _filter_window(rows, layout: BandLayout, b: int, params,
+                   quality_per_cell, ss: int, gutter_x: int, **kw):
+    """Band b of `layout` through _filter_band.  `rows` starts at the
+    band's d0; rows past its window are left out.  `kw` are
+    _filter_band's keywords (transparent, de_on, de_static_r,
+    spatial_filter, filter_shape, earlyclip, skip_empty).  Returns
+    (band_rows/ss, W, C) u8, C = 3 for opaque output, 4 for
+    transparent."""
+    d0, r0, _r1 = layout.windows[b]
+    out = _filter_band(rows[:layout.window_rows(b)], params,
+                       quality_per_cell, ss, layout.margin, gutter_x,
+                       de_rows=(r0 - d0, layout.ctx), **kw)
+    return out if kw["transparent"] else out[..., :3]
+
+
+def _filter_banded_device(himg, layout: BandLayout, params, quality_per_cell,
+                          ss: int, gutter_x: int, **kw):
+    """Every band of `layout` on the device: the (acc_h, acc_w, 4)
+    image padded as the layout says, then one _filter_window per band
+    (`kw` as there).  Returns (n_bands, band_rows/ss, W, C) u8, C = 3
+    for opaque output (alpha is the constant the host fills in), 4 for
+    transparent."""
+    padded = layout.pad(himg)
+    return torch.stack([
+        _filter_window(padded[d0 + layout.top:], layout, b, params,
+                       quality_per_cell, ss, gutter_x, **kw)
+        for b, (d0, _r0, _r1) in enumerate(layout.windows)])
 
 
 def _with_alpha(img_np: np.ndarray) -> np.ndarray:
@@ -444,16 +512,10 @@ class Renderer:
         histogram on the device and stats; ends in a device sync."""
         prof, cam = self.profile, self.cam
         stats = FrameStats()
-        full_h = cam.acc_height
-        th = -(-full_h // n_stripes)
         full = hist_mod.alloc(cam.n_bins, self.device)
         ts_times, ts_weights, _sumfilt = self._temporal_times(t)
         t0 = time.perf_counter()
-        for s in range(-(-full_h // th)):
-            rows = min(th, full_h - s * th)
-            scam = dataclasses.replace(cam, tile_row0=s * th,
-                                       full_acc_height=full_h,
-                                       tile_acc_height=rows)
+        for scam in stripe_cameras(cam, n_stripes):
             hist = hist_alloc_for(self.backend, scam.n_bins, self.device)
             if len(ts_times) == 1:
                 params = params_from_genome(
@@ -467,8 +529,8 @@ class Renderer:
                     iters_per_sample=prof.total_iters / len(ts_times),
                     cam=scam)
             h_log = hist_to_logical(self.backend, hist, scam.n_bins)
-            _merge_stripe(full, h_log[:scam.n_bins], s * th, rows,
-                          cam.acc_width)
+            _merge_stripe(full, h_log[:scam.n_bins], scam.tile_row0,
+                          scam.acc_height, cam.acc_width)
             stats.plotted_samples += int(n_plot)
             stats.total_iters += n_iter
         sync(self.device)
@@ -490,18 +552,25 @@ class Renderer:
         """finalize_frame without the readback: the u8 frame as a
         device tensor, (H, W, 3) for opaque profiles (alpha is the
         constant the host fills in) and (H, W, 4) for transparent."""
+        params, q_cell, kw = self._filter_inputs(t)
+        hist = torch.as_tensor(hist, dtype=torch.float32).to(self.device)
+        return _filter_frame(self.cam, hist=hist_mod.finalize(hist),
+                             params=params, quality_per_cell=q_cell, **kw)
+
+    def _filter_inputs(self, t: float):
+        """What every filter of the frame at `t` takes: (params on the
+        device, quality per accumulator cell, the filter's keywords:
+        transparent, de_on, de_static_r, spatial_filter, filter_shape,
+        earlyclip)."""
         prof, cam = self.profile, self.cam
         host_params = self.genome.eval_at(t)
-        params = params_from_genome(host_params, self.device)
         _times, _w, sumfilt = self._temporal_times(t)
         q_cell = torch.tensor(
             np.float32(prof.quality * sumfilt / (cam.ss * cam.ss)),
             device=self.device)
-        hist = torch.as_tensor(hist, dtype=torch.float32).to(self.device)
         de_r = self._static_de_r
-        return _filter_frame(
-            cam, prof.transparent, self._de_on(host_params),
-            hist_mod.finalize(hist), params, q_cell,
+        return params_from_genome(host_params, self.device), q_cell, dict(
+            transparent=prof.transparent, de_on=self._de_on(host_params),
             de_static_r=de_r if de_r > 0 else 9.0,
             spatial_filter=self._static_sf,
             filter_shape=self.genome.spatial_filter_shape,
@@ -523,29 +592,16 @@ class Renderer:
         an opaque frame's alpha is filled on the host."""
         prof, cam = self.profile, self.cam
         t1 = time.perf_counter()
-        host_params = self.genome.eval_at(t)
-        params = params_from_genome(host_params, self.device)
-        _times, _w, sumfilt = self._temporal_times(t)
-        q_cell = torch.tensor(
-            np.float32(prof.quality * sumfilt / (cam.ss * cam.ss)),
-            device=self.device)
-        de_r = self._static_de_r
-        de_on = self._de_on(host_params)
-        sf = self._static_sf
-        shape = self.genome.spatial_filter_shape
-        ss, H, W = cam.ss, prof.height, prof.width
-        h_band = -(-H // n_bands)
-        margin = band_margin(de_on, de_r, sf, shape, ss)
+        params, q_cell, kw = self._filter_inputs(t)
+        H, W = prof.height, prof.width
+        h_band, layout = self._band_layout(n_bands, kw["de_on"])
         if skip_empty is None:
             skip_empty = os.environ.get("CUBURN_DE_SKIP_EMPTY") == "1"
         himg = torch.as_tensor(hist, dtype=torch.float32) \
             .to(self.device)[:-1].reshape(cam.acc_height, cam.acc_width, 4)
         bands = _filter_banded_device(
-            himg, params, q_cell, n_bands, h_band * ss, margin, ss,
-            cam.gutter, prof.transparent, de_on,
-            de_r if de_r > 0 else 9.0, sf, shape,
-            skip_empty=bool(skip_empty),
-            earlyclip=self.genome.earlyclip).cpu().numpy()
+            himg, layout, params, q_cell, cam.ss, cam.gutter,
+            skip_empty=bool(skip_empty), **kw).cpu().numpy()
         out = np.zeros((H, W, 4), np.uint8)
         if not prof.transparent:
             out[..., 3] = 255
@@ -561,6 +617,18 @@ class Renderer:
     def _de_on(self, host_params) -> bool:
         return (self.profile.de_enabled and
                 float(host_params.estimator_radius) > 0.0)
+
+    def _band_layout(self, n_bands: int, de_on: bool):
+        """(output rows a band, band_layout of the frame in n_bands
+        bands of ceil(H / n_bands) output rows)."""
+        cam = self.cam
+        h_band = -(-self.profile.height // n_bands)
+        de_r = self._static_de_r
+        margin = band_margin(de_on, de_r, self._static_sf,
+                             self.genome.spatial_filter_shape, cam.ss)
+        return h_band, band_layout(
+            n_bands, h_band * cam.ss, margin, cam.gutter, cam.acc_height,
+            cam.acc_width, de_on, de_r if de_r > 0 else 9.0)
 
     def frame_dt(self) -> float:
         """The per-frame genome-time step.  It matches frame_times()'s
@@ -606,25 +674,59 @@ class Renderer:
             batch //= 2
         return batch
 
+    def _trajectories(self, seed: int, batch: int):
+        """The starting state of the batch's trajectories that this
+        renderer runs: all of them on one device."""
+        return init_state(torch.Generator().manual_seed(seed), batch,
+                          self.device)
+
+    def _sample_setup(self, params, seed: int, iters: float):
+        """What the chaos game of one sample of ~`iters` iterations
+        starts from: (state, selection CDF rows, ppu, n_chunks, records
+        a chunk)."""
+        prof = self.profile
+        batch = self._batch_for(iters)
+        per_chunk = batch * prof.iters_per_chunk
+        ppu = params.ppu * float(np.float32(
+            prof.width / self.genome.size[0]))
+        return (self._trajectories(seed, batch), xform_cdf_rows(params),
+                ppu, max(1, int(np.ceil(iters / per_chunk))), per_chunk)
+
     def _accumulate_sample(self, params, hist, seed: int, iters: float,
                            cam: Optional[CameraSpec] = None):
         """Run the chaos game for ~`iters` iterations into hist through
         `cam` (default the frame's camera; a stripe's for
         accumulate_striped)."""
-        prof, cam = self.profile, cam or self.cam
-        cdf_rows = xform_cdf_rows(params)
-        batch = self._batch_for(iters)
-        state = init_state(torch.Generator().manual_seed(seed), batch,
-                           self.device)
-        ppu = params.ppu * float(np.float32(
-            prof.width / self.genome.size[0]))
-        per_chunk = batch * prof.iters_per_chunk
-        n_chunks = max(1, int(np.ceil(iters / per_chunk)))
+        prof = self.profile
+        state, cdf_rows, ppu, n_chunks, per_chunk = self._sample_setup(
+            params, seed, iters)
         _state, hist, plotted = iterate_accumulate(
-            self.key, cam, self.backend, params, cdf_rows, state, hist,
-            ppu, n_chunks, prof.iters_per_chunk, prof.fuse,
+            self.key, cam or self.cam, self.backend, params, cdf_rows,
+            state, hist, ppu, n_chunks, prof.iters_per_chunk, prof.fuse,
             op_bits=self.op_bits, packed=self.packed)
         return hist, plotted, n_chunks * per_chunk
+
+    def _temporal_setup(self, ts_times, ts_weights, seed: int,
+                        iters_per_sample: float):
+        """What the chaos game of a motion-blurred frame starts from:
+        (params_T, ppu_T, the sample weights as Python floats, state,
+        n_chunks a sample, records a chunk).  The batch is sized on the
+        frame's iterations, not one sample's: the trajectories carry
+        over between samples."""
+        prof = self.profile
+        if self._packed_genome is None:
+            self._packed_genome = pack_genome(self.genome, self.device)
+        params_T = self._packed_genome.eval_params(
+            np.asarray(ts_times, np.float32))
+        ppu_T = params_T.ppu * float(np.float32(
+            prof.width / self.genome.size[0]))
+        batch = self._batch_for(iters_per_sample * len(ts_times))
+        per_chunk = batch * prof.iters_per_chunk
+        # Python floats: a flush takes its weight as a kernel argument
+        weights = [float(w) for w in np.asarray(ts_weights, np.float32)]
+        return (params_T, ppu_T, weights, self._trajectories(seed, batch),
+                max(1, int(np.ceil(iters_per_sample / per_chunk))),
+                per_chunk)
 
     def _accumulate_temporal(self, ts_times, ts_weights, hist,
                              seed: int, iters_per_sample: float,
@@ -633,28 +735,15 @@ class Renderer:
         of the T shutter times into hist through `cam` (as in
         _accumulate_sample), each sample's flushes scaled by its
         temporal-filter weight."""
-        prof, cam = self.profile, cam or self.cam
-        if self._packed_genome is None:
-            self._packed_genome = pack_genome(self.genome, self.device)
-        params_T = self._packed_genome.eval_params(
-            np.asarray(ts_times, np.float32))
-        ppu_T = params_T.ppu * float(np.float32(
-            prof.width / self.genome.size[0]))
-        T = len(ts_times)
-        # the batch is sized on the frame's iterations, not one
-        # sample's: the trajectories carry over between samples
-        batch = self._batch_for(iters_per_sample * T)
-        state = init_state(torch.Generator().manual_seed(seed), batch,
-                           self.device)
-        per_chunk = batch * prof.iters_per_chunk
-        n_chunks = max(1, int(np.ceil(iters_per_sample / per_chunk)))
-        # Python floats: a flush takes its weight as a kernel argument
-        weights = [float(w) for w in np.asarray(ts_weights, np.float32)]
+        prof = self.profile
+        params_T, ppu_T, weights, state, n_chunks, per_chunk = \
+            self._temporal_setup(ts_times, ts_weights, seed,
+                                 iters_per_sample)
         _state, hist, plotted = iterate_accumulate_temporal(
-            self.key, cam, self.backend, params_T, state, hist, ppu_T,
-            n_chunks, prof.iters_per_chunk, prof.fuse,
+            self.key, cam or self.cam, self.backend, params_T, state, hist,
+            ppu_T, n_chunks, prof.iters_per_chunk, prof.fuse,
             weights_T=weights, op_bits=self.op_bits, packed=self.packed)
-        return hist, plotted, n_chunks * per_chunk * T
+        return hist, plotted, n_chunks * per_chunk * len(ts_times)
 
     # -- animation -------------------------------------------------------
 

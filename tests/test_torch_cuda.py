@@ -790,3 +790,27 @@ def test_unpacked_frame_scatters_on_the_card(cuda, monkeypatch):
     assert torch.equal(whole[:-1, 3], striped[:-1, 3])
     assert float(whole[:-1, 3].sum()) == sw.plotted_samples == \
         ss.plotted_samples > 0
+
+
+def _sharded_world_1(rank, device, backend):
+    """One rank over NCCL: the sharded histogram and the one-device one
+    from the same seed, on the card."""
+    from cuburn_tpu_torch.parallel.shard import ShardedRenderer
+    prof = RenderProfile(width=128, height=96, quality=40, batch=4096,
+                         iters_per_chunk=16, fuse=16, hist_backend=backend)
+    got, sg = ShardedRenderer(full_feature(), prof, device).accumulate(
+        0.0, seed=3)
+    want, sw = trender.Renderer(full_feature(), prof, device).accumulate(
+        0.0, seed=3)
+    return (got.cpu(), sg.plotted_samples, want.cpu(), sw.plotted_samples)
+
+
+@pytest.mark.parametrize("backend", ["pallas_win", "pallas_rgb16"])
+def test_sharded_world_1_over_nccl(cuda, backend):
+    """ShardedRenderer in one rank over NCCL on the card: density equal
+    to the one-device Renderer's in every bin, plotted counts equal."""
+    from cuburn_tpu_torch.parallel import launch
+    ((got, n_got, want, n_want),) = launch.spawn(
+        _sharded_world_1, ["cuda:0"], "nccl", backend, timeout_s=300)
+    assert torch.equal(got[:-1, 3], want[:-1, 3])
+    assert n_got == n_want > 0

@@ -2,9 +2,11 @@
 that the port imports nothing of it.
 
 Contracts:
-- no module of `cuburn_tpu_torch/`, nor `chip_smoke.py` or
-  `kernel_ab.py`, imports `cuburn_tpu` or `jax` (an AST scan), and every
-  port module imports with both blocked;
+- no module of `cuburn_tpu_torch/` (`parallel/` included), nor
+  `chip_smoke.py` or `kernel_ab.py`, imports `cuburn_tpu` or `jax` (an
+  AST scan), and every port module imports with both blocked (the
+  ranks that `parallel/launch.py` spawns import only these modules;
+  `tests/test_torch_shard.py` checks them);
 - the port's copies of the genome layer, gallery, profiles, command-line
   parser and output sinks give the JAX package's results exactly:
   `eval_at(t)` leaves and `structure_key()` of every gallery genome and
@@ -71,6 +73,8 @@ def test_port_sources_import_no_jax_package():
     sources = _port_sources()
     assert len(sources) > 20
     assert PORT / "ops" / "interp.py" in sources
+    assert {PORT / "parallel" / f"{m}.py"
+            for m in ("__init__", "launch", "shard", "farm")} <= set(sources)
     bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p) & FORBIDDEN)
            for p in sources if _imported_roots(p) & FORBIDDEN}
     assert bad == {}
@@ -80,6 +84,9 @@ def test_every_port_module_imports_with_jax_blocked():
     mods = _port_modules()
     assert "cuburn_tpu_torch.ops.tiled_sort" in mods
     assert "cuburn_tpu_torch.ops.interp" in mods
+    assert {"cuburn_tpu_torch.parallel", "cuburn_tpu_torch.parallel.launch",
+            "cuburn_tpu_torch.parallel.shard",
+            "cuburn_tpu_torch.parallel.farm"} <= set(mods)
     script = (
         "import importlib, sys\n"
         "sys.modules['cuburn_tpu'] = sys.modules['jax'] = None\n"

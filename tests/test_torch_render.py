@@ -180,10 +180,21 @@ def test_cli_renders_a_still_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--devices", "2"], ["--trace-dir", "tr"],
                                   ["--reduce-scatter"]])
-def test_cli_refuses_unported_flags(flag):
+def test_cli_refuses_unported_flags(flag, monkeypatch):
+    """--trace-dir is not ported yet and is refused.  --devices and
+    --reduce-scatter are ported (tests/test_torch_shard.py renders
+    them on the CPU); they are refused where they cannot run:
+    --devices 2 on CUDA without a GPU exits instead of falling back to
+    the CPU, and --reduce-scatter without --devices exits with the JAX
+    CLI's message."""
     from cuburn_tpu_torch import main as tmain
-    with pytest.raises(SystemExit, match="not ported"):
-        tmain.main(["gallery:sierpinski", "--cpu", *flag])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    why = {"--devices": "--devices 2: no CUDA device",
+           "--trace-dir": "not ported",
+           "--reduce-scatter": "requires --devices N>1"}[flag[0]]
+    on_cpu = [] if flag[0] == "--devices" else ["--cpu"]
+    with pytest.raises(SystemExit, match=why):
+        tmain.main(["gallery:sierpinski", *on_cpu, *flag])
 
 
 @pytest.mark.parametrize("flag", [["--stripes", "3"], ["--bands", "3"]])
