@@ -124,16 +124,41 @@ CUDA toolkit.  Phases, each printed on its own line:
               cuda:0 and a client: 3 frames of animated_spark, frame i
               within one u8 step of Renderer.render_frame(t_i, seed + i).
               It stops if the machine has more than one card.
+ 12. tools    (a) the tuner (retune.py) at its --quick sizes, 4 chunks
+              a race, every row raced twice in turns: the record gated
+              to this card, every race row numeric in both passes,
+              l2_bytes the card's, win_flush, the split flush and the
+              sort launched during the race; both passes' rows and
+              their spread; under the record a 1080p Renderer takes its
+              tiled keys (backend and flush size), under the record
+              with its picks set to pallas_rgb16 and 2^23 records it
+              takes those, under the repo's TPU record it keeps
+              pallas_win and 32 and says "skipped".
+              (b) full_feature at 1080p, quality 10, through the CLI
+              with --trace-dir, in turns with the same render untraced
+              (off, on, on, off): the trace parses, each hand kernel's
+              kernel events equal its launch counter over the call;
+              iterate times, trace MB.  (c) the native output encoder
+              against the Python one on phase 4's still and phase 9's
+              middle frame: host ms (medians of 5), bytes, the native
+              PNG's rows the Paeth filter of the frame and the Python
+              PNG's the frame, the native YCbCr equal to the fixed-point
+              formula; it fails where the native encoder is not in use
+              (the Y4M sink's; write_image keeps the Python PNG).
 
-Then one JSON line describing each kernel, the nvidia-smi line, and
-last {"ok": true, "device": {...}}.  Any failed check exits non-zero
-before those lines.  Without CUDA it exits non-zero at once.
+Every phase but 12a runs with CUBURN_TUNE_FILE pointing at a file that
+does not exist, so no tune record moves the launch counts.  Then one
+JSON line describing each kernel, the nvidia-smi line, and last
+{"ok": true, "device": {...}}.  Any failed check exits non-zero before
+those lines.  Without CUDA it exits non-zero at once.
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import io
 import itertools
 import json
 import os
@@ -141,6 +166,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CSRC = "cuburn_tpu_torch/csrc"
@@ -183,6 +209,21 @@ FLUSH_CONFIGS = ((3, 8, 1.0), (4, 8, 0.37))
 # ~6 ms at the H100's 1.7-2 GHz: the head start the host gets before a
 # device timing starts
 SLEEP_CYCLES = 10_000_000
+# the __global__ functions behind each launch counter, as a profiler
+# trace names its kernel events
+TRACE_KERNELS = {
+    "win_flush": ("win_flush_kernel",),
+    "packed_flush": ("packed_flush_kernel",),
+    "merged_flush": ("merged_flush_kernel",),
+    "win_flush_rgb16": ("rgb16_tiles_kernel", "rgb16_resolve_kernel"),
+    "bitonic_sort": ("first_pass_kernel", "later_pass_kernel",
+                     "global_pass_kernel"),
+}
+# CUBURN_TUNE_FILE for every phase but the tuner's: a path that does not
+# exist, so no tune record in the working directory moves the flush
+# size or the backend the earlier phases count launches at
+NO_TUNE_RECORD = os.path.join(REPO, "smoke_out", "no-tune-record",
+                              "none.json")
 
 
 def check(cond, msg):
@@ -596,8 +637,9 @@ def tv_distance(a, b):
 
 def phase_render(torch, flush, tiled_sort, tit, write_image, r, quality):
     """The main path on the card (phase 4): returns the launches of its
-    kernels (the flush and the sort) during render_frame and copies of
-    the records of the first two flushes of a second pass."""
+    kernels (the flush and the sort) during render_frame, copies of the
+    records of the first two flushes of a second pass, and the
+    frame."""
     check(r.backend == "pallas_win",
           f"backend {r.backend}, expected pallas_win")
     flush.LAUNCHES["win_flush"] = 0
@@ -648,7 +690,7 @@ def phase_render(torch, flush, tiled_sort, tit, write_image, r, quality):
           iterate_s=stats.iterate_s, filter_s=stats.filter_s,
           lit_fraction=float((img[..., :3] > 0).any(-1).mean()),
           png=os.path.relpath(png, REPO))
-    return launches, flushes
+    return launches, flushes, img
 
 
 def flush_mix(torch, rec, n_bins, bits, hot_bins=128 * 128):
@@ -927,7 +969,8 @@ def mean_rgb(img):
 def phase_animation(torch, flush, tiled_sort, tit, write_image, Renderer,
                     animated_spark, get_profile, quality):
     """Animation at full width (phase 9).  Returns the launches of every
-    kernel while its backend rendered motion-blurred frames."""
+    kernel while its backend rendered motion-blurred frames, and the
+    middle frame."""
     import numpy as np
 
     from cuburn_tpu_torch.ops.interp import pack_genome
@@ -1047,7 +1090,7 @@ def phase_animation(torch, flush, tiled_sort, tit, write_image, Renderer,
               iterate_s=[s.iterate_s for _, s in a])
     for name, n in launches.items():
         check(n > 0, f"the animation launched no {name}")
-    return launches
+    return launches, serial[1][0]
 
 
 def check_striped(torch, whole, sw, striped, ss, what, bf16_flushes=0):
@@ -1745,6 +1788,254 @@ def phase_sharded(torch, write_image, Renderer, animated_spark,
         "bitonic_sort": a["pallas_win"]["bitonic_sort"]}
 
 
+# -- phase 12: the tools (retune.py, --trace-dir, the native encoder) ------
+
+def phase_tuner(torch, flush, tiled_sort, Renderer, full_feature,
+                get_profile, chunks=4):
+    """The tuner at its --quick sizes, `chunks` chunks a race (phase
+    12a): it races every row twice in turns and keeps only picks that
+    lead by more than a row moved between the passes.  The record is gated to this card, every
+    race row numeric in both passes, l2_bytes the card's; win_flush, the
+    split flush and the sort were launched during the race.  Then a
+    1080p Renderer applies the record's tiled keys, the same record
+    with its picks set (pallas_rgb16, 2^23 records a tiled flush) moves
+    the Renderer to them, and the repo's TPU record is skipped."""
+    from cuburn_tpu_torch import render as trender
+    from cuburn_tpu_torch import retune
+    kind = torch.cuda.get_device_name(0)
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    out_dir = os.path.join(REPO, "smoke_out")
+    path = os.path.join(out_dir, "tune_cuda.json")
+    reset_launches(flush, tiled_sort)
+    os.environ["CUBURN_RETUNE_CHUNKS"] = str(chunks)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = retune.main(["--quick", "--out", path])
+    finally:
+        del os.environ["CUBURN_RETUNE_CHUNKS"]
+    seconds = time.perf_counter() - t0
+    launches = launches_now(flush, tiled_sort)
+    check(rc == 0, f"retune returned {rc}")
+    with open(path) as f:
+        rec = json.load(f)
+    check(rec["device"] == kind,
+          f"tune record for {rec['device']!r}, this card is {kind!r}")
+    check(rec["l2_bytes"] == l2, f"l2_bytes {rec['l2_bytes']} != {l2}")
+    m, passes = rec["measurements"], rec["passes"]
+    check(len(m) == 11 and all(isinstance(v, (int, float)) and v > 0
+                               for v in m.values()),
+          f"retune: race rows {m}")
+    check(set(passes) == set(m) and all(
+        len(rs) == 2 and all(isinstance(v, (int, float)) and v > 0
+                             for v in rs) for rs in passes.values()),
+          f"retune: passes {passes}")
+    for name in ("win_flush", "win_flush_rgb16", "bitonic_sort"):
+        check(launches[name] > 0, f"retune launched no {name}")
+    picks = {key: rec.get(key) for key in (
+        "hist_backend", "hist_backend_tiled", "flush_records",
+        "tiled_flush_records")}
+    phase(12, "tools", part="a_tuner", seconds=seconds, chunks=chunks,
+          device=rec["device"], l2_bytes=l2, picks=picks,
+          launches=launches, unit="M iters/s", passes=passes,
+          race_spread=rec["spread"],
+          spread={row: (max(rs) - min(rs)) / min(rs)
+                  for row, rs in passes.items()})
+
+    # the record applied by the main path's Renderer (its tiled keys, as
+    # the 1080p-ss2 histogram is past L2), then the same record with its
+    # picks set, which must move the Renderer to them
+    forced = dict(rec, hist_backend_tiled="pallas_rgb16",
+                  tiled_flush_records=1 << 23)
+    forced_path = os.path.join(out_dir, "tune_cuda_forced.json")
+    with open(forced_path, "w") as f:
+        json.dump(forced, f)
+    prof = get_profile("1080p")
+    try:
+        for rec_path, want in ((path, rec), (forced_path, forced),
+                               (os.path.join(REPO, "cuburn_tune.json"),
+                                None)):
+            os.environ["CUBURN_TUNE_FILE"] = rec_path
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                r = Renderer(full_feature(), prof)
+            check(trender.histogram_tiled(r.cam.n_bins, r.device),
+                  "the 1080p-ss2 histogram is not past L2")
+            if want is not None:
+                backend = want["hist_backend_tiled"]
+                ipc = (want["flush_records"] // prof.batch
+                       if want.get("flush_records") else 32)
+                if backend in ("pallas_win", "pallas_rgb16") and \
+                        want.get("tiled_flush_records"):
+                    ipc = max(ipc, want["tiled_flush_records"] // prof.batch)
+                said = "applying tune record"
+            else:
+                backend, ipc, said = "pallas_win", 32, "skipped"
+            check(r.backend == backend and r.profile.iters_per_chunk == ipc
+                  and said in err.getvalue(),
+                  f"under {rec_path}: backend {r.backend}, iters_per_chunk "
+                  f"{r.profile.iters_per_chunk}, expected {backend}, {ipc} "
+                  f"and {said!r} on stderr ({err.getvalue()!r})")
+            phase(12, "tools", part="a_applied",
+                  record=os.path.relpath(rec_path, REPO), backend=r.backend,
+                  iters_per_chunk=r.profile.iters_per_chunk,
+                  stderr=err.getvalue().strip())
+    finally:
+        os.environ["CUBURN_TUNE_FILE"] = NO_TUNE_RECORD
+
+
+def trace_kernel_counts(path):
+    """{kernel: its kernel events in the Chrome trace at `path`}."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events
+             if str(e.get("cat", "")).lower() == "kernel"]
+    return {k: sum(any(fn in n for fn in fns) for n in names)
+            for k, fns in TRACE_KERNELS.items()}, len(names), len(events)
+
+
+def phase_trace(torch, flush, tiled_sort, quality=10):
+    """A 1080p render through the CLI with --trace-dir (phase 12b), in
+    turns with the same render untraced (off, on, on, off): the trace
+    parses, holds each hand kernel as many times as the launch counters
+    say, and the iterate times of both.  Returns the traced render's
+    launches."""
+    from cuburn_tpu_torch import main as tmain
+    out_dir = os.path.join(REPO, "smoke_out")
+    trace_dir = os.path.join(out_dir, "trace")
+    trace = os.path.join(trace_dir, "trace.json")
+    metrics = os.path.join(out_dir, "trace_metrics.jsonl")
+    runs = {"off": [], "on": []}
+    traced = None
+    for mode in ("off", "on", "on", "off"):
+        if os.path.exists(metrics):
+            os.remove(metrics)
+        argv = ["gallery:full_feature", "--profile", "1080p", "--quality",
+                str(quality), "-o", os.path.join(out_dir, "trace.png"),
+                "--metrics-json", metrics]
+        if mode == "on":
+            argv += ["--trace-dir", trace_dir]
+        reset_launches(flush, tiled_sort)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = tmain.main(argv)
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"the {mode} render returned {rc}")
+        launches = launches_now(flush, tiled_sort)
+        with open(metrics) as f:
+            iterate_ms = json.loads(f.readlines()[-1])["iterate_ms"]
+        run = {"iterate_ms": iterate_ms, "wall_s": wall}
+        if mode == "on":
+            counts, n_kernels, n_events = trace_kernel_counts(trace)
+            for name, n in launches.items():
+                check(counts[name] == n,
+                      f"the trace holds {counts[name]} {name} kernel "
+                      f"events, the counters {n} launches")
+            check(launches["win_flush"] > 0 and
+                  launches["bitonic_sort"] > 0,
+                  f"the traced render launched {launches}")
+            run.update(trace_mb=os.path.getsize(trace) / 1e6,
+                       kernel_events=n_kernels, events=n_events,
+                       hand_kernel_events=counts)
+            traced = launches
+        runs[mode].append(run)
+    phase(12, "tools", part="b_trace", genome="full_feature",
+          profile="1080p", quality=quality, order="off,on,on,off",
+          launches=traced, **runs)
+    return traced
+
+
+def png_rows(png: bytes) -> bytes:
+    """The decompressed scanlines of a PNG's IDAT chunks."""
+    pos, idat = 8, []
+    while pos < len(png):
+        n = int.from_bytes(png[pos:pos + 4], "big")
+        if png[pos + 4:pos + 8] == b"IDAT":
+            idat.append(png[pos + 8:pos + 8 + n])
+        pos += 12 + n
+    return zlib.decompress(b"".join(idat))
+
+
+def paeth_reference(np, rgba):
+    """PNG filter type 4 of every row of an (H, W, 4) u8 frame, in
+    numpy."""
+    h, w = rgba.shape[:2]
+    x = rgba.reshape(h, 4 * w).astype(np.int32)
+    a, b, c = (np.zeros_like(x) for _ in range(3))
+    a[:, 4:] = x[:, :-4]
+    b[1:] = x[:-1]
+    c[1:, 4:] = x[:-1, :-4]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = np.empty((h, 1 + 4 * w), np.uint8)
+    rows[:, 0] = 4
+    rows[:, 1:] = (x - pred).astype(np.uint8)
+    return rows.tobytes()
+
+
+def ycbcr_reference(np, rgba):
+    """fastout's x1024 fixed-point BT.601 full-range YCbCr, in numpy."""
+    r, g, b = (rgba[..., i].astype(np.int32) for i in range(3))
+    planes = ((306 * r + 601 * g + 117 * b + 512) >> 10,
+              ((-173 * r - 339 * g + 512 * b + 512) >> 10) + 128,
+              ((512 * r - 429 * g - 83 * b + 512) >> 10) + 128)
+    return b"".join(np.clip(p, 0, 255).astype(np.uint8).tobytes()
+                    for p in planes)
+
+
+def host_ms(fn, reps=5):
+    """Median host ms of `reps` calls after one warm-up."""
+    fn()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
+def phase_encoder(frames):
+    """The native encoder against the Python one on real frames (phase
+    12c): host ms (medians of 5; the native PNG's Paeth filter also
+    alone), bytes, the native PNG's scanlines the
+    Paeth filter of the frame and the Python PNG's the frame itself (so
+    both decode to its pixels), and the native YCbCr equal to the
+    fixed-point formula."""
+    import numpy as np
+
+    from cuburn_tpu_torch import native, output
+    check(output.encoder() == "native",
+          "the native output encoder is not in use on this machine")
+    for name, img in frames.items():
+        rgba = np.ascontiguousarray(img, np.uint8)
+        h, w = rgba.shape[:2]
+        png_n = output.encode_png_native(rgba)
+        png_p = output.encode_png(rgba)
+        check(png_rows(png_n) == paeth_reference(np, rgba),
+              f"{name}: the native PNG's rows are not the Paeth filter")
+        rows_p = np.frombuffer(png_rows(png_p), np.uint8).reshape(h, -1)
+        check(bool((rows_p[:, 0] == 0).all())
+              and np.array_equal(rows_p[:, 1:], rgba.reshape(h, -1)),
+              f"{name}: the Python PNG's rows are not the frame")
+        ycc_n = native.rgb_to_ycbcr444(rgba)
+        ycc_p = output.ycbcr444(rgba)
+        check(ycc_n == ycbcr_reference(np, rgba),
+              f"{name}: the native YCbCr is not the fixed-point formula")
+        step = np.abs(np.frombuffer(ycc_n, np.uint8).astype(np.int16)
+                      - np.frombuffer(ycc_p, np.uint8))
+        phase(12, "tools", part="c_encoder", frame=name, shape=[h, w],
+              png_native_ms=host_ms(lambda: output.encode_png_native(rgba)),
+              png_native_filter_ms=host_ms(lambda: native.paeth_rows(rgba)),
+              png_python_ms=host_ms(lambda: output.encode_png(rgba)),
+              png_native_bytes=len(png_n), png_python_bytes=len(png_p),
+              ycbcr_native_ms=host_ms(lambda: native.rgb_to_ycbcr444(rgba)),
+              ycbcr_python_ms=host_ms(lambda: output.ycbcr444(rgba)),
+              ycbcr_max_step=int(step.max()),
+              ycbcr_share_apart=float((step > 0).mean()))
+
+
 def build_all(build):
     """Every kernel library, one nvcc each, all started together."""
     libs = sorted({lib for lib, _ in KERNELS.values()})
@@ -1766,6 +2057,9 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    # before any Renderer is built (the ranks of phase 11 inherit it)
+    check(not os.path.exists(NO_TUNE_RECORD), f"{NO_TUNE_RECORD} exists")
+    os.environ["CUBURN_TUNE_FILE"] = NO_TUNE_RECORD
     from cuburn_tpu_torch.kernels import build
     from cuburn_tpu_torch.models import (animated_spark, full_feature,
                                          sierpinski)
@@ -1796,7 +2090,7 @@ def main(argv=None) -> int:
     times, errs, launches = {}, {}, {}
     times["win_flush"], errs["win_flush"] = phase_flush(
         torch, flush, sort, thist, "win_flush", n_bins, acc_width, 3)
-    main_launches, real_flushes = phase_render(
+    main_launches, real_flushes, main_frame = phase_render(
         torch, flush, tiled_sort, tit, write_image, main_r, args.quality)
     launches.update(main_launches)
     phase_flush_mix(torch, flush, sort, thist, real_flushes, n_bins,
@@ -1826,7 +2120,7 @@ def main(argv=None) -> int:
                      backend, phase_no=8)
     phase_parity(torch, Renderer, RenderProfile, spark(animated_spark),
                  phase_no=8, t=0.5, temporal_samples=ANIM_SAMPLES, fps=4.0)
-    anim_launches = phase_animation(
+    anim_launches, anim_frame = phase_animation(
         torch, flush, tiled_sort, tit, write_image, Renderer,
         animated_spark, get_profile, half)
     part_launches = phase_partition(
@@ -1835,6 +2129,10 @@ def main(argv=None) -> int:
     sharded_launches = phase_sharded(torch, write_image, Renderer,
                                      animated_spark, get_profile,
                                      args.quality)
+    phase_tuner(torch, flush, tiled_sort, Renderer, full_feature,
+                get_profile)
+    traced_launches = phase_trace(torch, flush, tiled_sort)
+    phase_encoder({"still": main_frame, "animation": anim_frame})
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu",
@@ -1842,6 +2140,7 @@ def main(argv=None) -> int:
         "launches_animation": anim_launches[name],
         "launches_partitioned": part_launches[name],
         "launches_sharded": sharded_launches[name],
+        "launches_traced": traced_launches[name],
         "max_abs_err": errs[name], "ms": times[name]["ms"],
         "device_ms": times[name]["device_ms"],
         "plain_ms": times[name]["plain_ms"],

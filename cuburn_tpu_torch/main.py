@@ -18,14 +18,17 @@ The render runs on CUDA unless `--cpu` asks for the CPU; without a GPU
 the CUDA default fails instead of falling back.  `--devices N` shards
 each frame over N processes, one a device (`parallel/shard.py`): N GPUs
 over NCCL, or with `--cpu` N CPU processes over gloo; rank 0 writes the
-output.  `--trace-dir` is not ported yet and is refused.
+output.  `--trace-dir DIR` writes a torch.profiler trace of the render
+(Chrome/Perfetto JSON) into DIR, one file a process.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import sys
 import time
 
@@ -120,8 +123,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="render on the CPU (the default is the GPU, "
                         "with no fallback)")
     p.add_argument("--trace-dir",
-                   help="capture a profiler trace of the render into "
-                        "this directory (not ported yet)")
+                   help="capture a torch.profiler trace (Chrome/Perfetto "
+                        "JSON) of the render into this directory")
     p.add_argument("--cam-angle-units", default="",
                    choices=("", "degrees", "radians"),
                    help="how to read cam_yaw/cam_pitch in flam3 XML "
@@ -179,11 +182,31 @@ def load_genome(spec: str, index: int, angle_units: str = ""):
     return genomes[index]
 
 
-def _refuse_unported(args) -> None:
-    if args.trace_dir is not None:
-        raise SystemExit(
-            "cuburn-tpu-torch: --trace-dir is not ported yet (see "
-            "ROADMAP.md queue A)")
+@contextlib.contextmanager
+def _traced(trace_dir, device, rank=None):
+    """Profile the body with torch.profiler (the CPU, and CUDA on a
+    GPU) when `trace_dir` is set, and write the trace as
+    trace_dir/trace.json (trace_rank<rank>.json for a rank) even when
+    the body raises."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, "trace.json" if rank is None
+                        else f"trace_rank{rank}.json")
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(path)
+        print(f"trace written to {path}", file=sys.stderr)
 
 
 def _animate(args, renderer, sequence, output_mod, write: bool) -> None:
@@ -244,7 +267,8 @@ def _animate(args, renderer, sequence, output_mod, write: bool) -> None:
             if args.stats:
                 print(f"frame {n}: {stats.samples_per_sec/1e6:.1f} "
                       f"Msamples/s, retention "
-                      f"{stats.retention:.2f}", file=sys.stderr)
+                      f"{stats.retention:.2f}, "
+                      f"{output_mod.encoder()} encoder", file=sys.stderr)
             if args.metrics_json:
                 _append_metrics(args.metrics_json,
                                 _stats_record(n, None, stats))
@@ -314,8 +338,9 @@ def _render_rank(rank, device, args, genome, sequence, prof) -> None:
     """One rank of `--devices N`: the same calls as every other rank;
     rank 0 writes."""
     from cuburn_tpu_torch.parallel.shard import ShardedRenderer
-    _render(args, ShardedRenderer(genome, prof, device), sequence,
-            write=rank == 0)
+    renderer = ShardedRenderer(genome, prof, device)
+    with _traced(args.trace_dir, device, rank):
+        _render(args, renderer, sequence, write=rank == 0)
 
 
 def _sharded_devices(args):
@@ -340,7 +365,6 @@ def _sharded_devices(args):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
 
     genome = load_genome(args.genome, args.flame_index,
                          angle_units=args.cam_angle_units)
@@ -425,8 +449,9 @@ def main(argv=None) -> int:
         device = resolve_device("cpu" if args.cpu else "cuda")
     except RuntimeError as e:       # no GPU: say so, do not fall back
         raise SystemExit(f"cuburn-tpu-torch: {e}")
-    _render(args, Renderer(genome, prof, device=device), sequence,
-            write=True)
+    renderer = Renderer(genome, prof, device=device)
+    with _traced(args.trace_dir, device):
+        _render(args, renderer, sequence, write=True)
     return 0
 
 

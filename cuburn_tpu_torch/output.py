@@ -1,8 +1,16 @@
 """Output sinks: PNG/JPEG stills and raw/y4m video pipes.
 
-The port's own copy of `cuburn_tpu/output.py`, without its optional C
-encoder: PNG is written here with zlib (standard library), JPEG with
-PIL.  The decoded pixels are the JAX package's; the bytes may differ.
+The port's own copy of `cuburn_tpu/output.py`.  Its C encoder is
+native/fastout.c, built at first use: it converts the Y4M frames to
+YCbCr (x1024 fixed point, the bytes of the JAX package with its
+`fastout` built), and where it cannot be built `ycbcr444` does it in
+numpy (within one step); `encoder()` says which is in use.  PNG stills
+go through `encode_png` (unfiltered rows, Python's zlib).
+`encode_png_native` is the JAX package's PNG (Paeth-filtered rows from
+the C encoder): smaller files, but on an H100 machine's host it took
+2-2.7x encode_png's time, as deflate works harder on Paeth residuals
+(PERF.md), and a frame's host time is what launches the next frame, so
+write_image does not use it.  JPEG is written with PIL.
 
 Equivalent of the reference's cuburn/output.py (SURVEY.md §2 layer 5):
 PIL-based still writer plus a frame pipe suitable for feeding ffmpeg /
@@ -21,29 +29,64 @@ from typing import IO
 
 import numpy as np
 
+from cuburn_tpu_torch import native
+
 
 def _png_chunk(tag: bytes, data: bytes) -> bytes:
     return (struct.pack(">I", len(data)) + tag + data
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
+def _png(rows: bytes, w: int, h: int, level: int) -> bytes:
+    """PNG bytes of filtered scanlines: 8-bit RGBA, no interlace, one
+    zlib stream."""
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
+            + _png_chunk(b"IDAT", zlib.compress(rows, level))
+            + _png_chunk(b"IEND", b""))
+
+
 def encode_png(rgba: np.ndarray, level: int = 6) -> bytes:
-    """(H, W, 4) u8 -> PNG bytes: 8-bit RGBA, no interlace, filter 0 on
-    every row, one zlib stream."""
+    """(H, W, 4) u8 -> PNG bytes, filter 0 on every row: the Python
+    encoder."""
     h, w = rgba.shape[:2]
     rows = np.zeros((h, 1 + 4 * w), np.uint8)     # leading 0: no filter
     rows[:, 1:] = rgba.reshape(h, 4 * w)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0)
-    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
-            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
-            + _png_chunk(b"IEND", b""))
+    return _png(rows.tobytes(), w, h, level)
+
+
+def encode_png_native(rgba: np.ndarray, level: int = 6) -> bytes:
+    """(H, W, 4) u8 -> PNG bytes, Paeth filter on every row (the C
+    encoder; needs `native.load()`)."""
+    h, w = rgba.shape[:2]
+    return _png(native.paeth_rows(rgba), w, h, level)
+
+
+def ycbcr444(img: np.ndarray) -> bytes:
+    """(H, W, 3 or 4) u8 -> planar full-range BT.601 Y, Cb, Cr bytes in
+    float32 numpy: the Python converter."""
+    rgb = np.asarray(img)[..., :3].astype(np.float32) / 255.0
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = 0.5 + (b - y) * 0.564
+    cr = 0.5 + (r - y) * 0.713
+    return b"".join(np.clip(plane * 255.0 + 0.5, 0, 255)
+                    .astype(np.uint8).tobytes() for plane in (y, cb, cr))
+
+
+def encoder() -> str:
+    """"native" where native/fastout.c is built and loaded (building it
+    at the first call): the Y4M sink then converts in C; else
+    "python"."""
+    return "native" if native.load() is not None else "python"
 
 
 def write_image(path: str, img: np.ndarray):
     """Write a (H, W, 4) or (H, W, 3) u8 frame as PNG/JPEG by
     extension (RGB is upgraded to opaque RGBA, like the video sinks).
 
-    PNG goes through encode_png (zlib); JPEG uses PIL."""
+    PNG goes through encode_png (see the module docstring); JPEG uses
+    PIL."""
     arr = np.ascontiguousarray(img, dtype=np.uint8)
     ext = os.path.splitext(path)[1].lower()
     if ext in (".jpg", ".jpeg"):
@@ -82,15 +125,8 @@ class Y4MSink:
     def write_frame(self, img: np.ndarray):
         arr = np.ascontiguousarray(img, dtype=np.uint8)
         self.stream.write(b"FRAME\n")
-        rgb = arr[..., :3].astype(np.float32) / 255.0
-        r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
-        y = 0.299 * r + 0.587 * g + 0.114 * b
-        cb = 0.5 + (b - y) * 0.564
-        cr = 0.5 + (r - y) * 0.713
-        for plane in (y, cb, cr):
-            self.stream.write(
-                np.clip(plane * 255.0 + 0.5, 0, 255)
-                .astype(np.uint8).tobytes())
+        self.stream.write(native.rgb_to_ycbcr444(arr)
+                          if encoder() == "native" else ycbcr444(arr))
 
     def close(self):
         if self._own:

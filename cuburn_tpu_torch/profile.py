@@ -2,8 +2,8 @@
 
 The port's own copy of `cuburn_tpu/profile.py`, field for field, so a
 profile of either package converts to the other with
-`RenderProfile(**other.__dict__)`.  The port reads no tune record and
-ignores `dispatch_iter_cap` and `sort_segments` (TPU-only knobs).
+`RenderProfile(**other.__dict__)`.  The port ignores
+`dispatch_iter_cap` and `sort_segments` (TPU-only knobs).
 
 Equivalent of the reference's cuburn/profile.py (SURVEY.md §2 layer 5):
 a profile carries everything about *how* to render (resolution, quality,
@@ -27,11 +27,9 @@ class RenderProfile:
     fuse: int = 32               # warmup iterations before plotting
     batch: int = 1 << 17         # trajectories advanced in lockstep
     # scan length between histogram flushes (records per flush =
-    # batch * iters_per_chunk).  0 = auto: the Renderer starts from
-    # the per-chip tune record (or the measured 512² default of 32)
-    # and scales UP for HBM-tiled histograms, where a sorted flush
-    # pays ~the whole histogram in row-block traffic regardless of
-    # record count (render.py _resolve_iters_per_chunk).
+    # batch * iters_per_chunk).  0 = auto: the per-card tune record's
+    # flush size (its tiled one for a histogram past L2), else 32
+    # (render.py _resolve_iters_per_chunk).
     iters_per_chunk: int = 0
     hist_backend: str = "auto"   # auto | scatter | sortcum | pallas | pallas_merged | pallas_win | pallas_rgb16 (auto picks pallas_win on a GPU, scatter on the CPU)
     de_enabled: bool = True

@@ -52,6 +52,16 @@ GENOMES = ("sierpinski", "full_feature", "animated_spark", "kaleido")
 TIMES = (0.0, 0.3, 0.77, 1.0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_tune_record(tmp_path_factory):
+    """No tune record reaches these tests: CUBURN_TUNE_FILE names a file
+    that does not exist (a test that wants a record sets it itself)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CUBURN_TUNE_FILE",
+                  str(tmp_path_factory.mktemp("tune") / "none.json"))
+        yield
+
+
 # -- the interpolator ------------------------------------------------------
 
 def _random_tables(seed=0, n=40):

@@ -56,6 +56,16 @@ NEW_BACKENDS = ("pallas", "pallas_merged", "pallas_rgb16", "scatter_sorted",
                 "sortcum")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_tune_record(tmp_path_factory):
+    """No tune record reaches these tests: CUBURN_TUNE_FILE names a file
+    that does not exist (a test that wants a record sets it itself)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CUBURN_TUNE_FILE",
+                  str(tmp_path_factory.mktemp("tune") / "none.json"))
+        yield
+
+
 def _records(seed, n, bits, n_bins=N_BINS, sentinels=0):
     """Packed u32 records (uint32): uniform bins with the junk bin, a
     hot patch of 40 bins, junk records, optional sentinels."""

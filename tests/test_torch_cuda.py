@@ -16,7 +16,10 @@ motion-blurred one too; every flush at a gaussian temporal filter's
 weights (0.011, 0.325) from a nonzero histogram within 1e-5 of the
 bin's density; overlapped frames equal serial ones bit for bit through
 the split flush; a striped frame's density equal to the whole frame's
-in every bin, its flush kernels launched once a flush in every stripe.
+in every bin, its flush kernels launched once a flush in every stripe;
+a tune record for this card steers `auto` and the flush size and the
+repo's TPU record does not; the native output encoder is in use; a
+`--trace-dir` render's trace holds each hand kernel's launches.
 """
 
 import numpy as np
@@ -47,6 +50,16 @@ FLUSHES = {
     "pallas_merged": (flush.accumulate_merged,
                       flush.accumulate_merged_reference, "merged_flush"),
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_tune_record(tmp_path_factory):
+    """No tune record reaches these tests: CUBURN_TUNE_FILE names a file
+    that does not exist (a test that wants a record sets it itself)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CUBURN_TUNE_FILE",
+                  str(tmp_path_factory.mktemp("tune") / "none.json"))
+        yield
 
 
 @pytest.fixture
@@ -814,3 +827,71 @@ def test_sharded_world_1_over_nccl(cuda, backend):
         _sharded_world_1, ["cuda:0"], "nccl", backend, timeout_s=300)
     assert torch.equal(got[:-1, 3], want[:-1, 3])
     assert n_got == n_want > 0
+
+
+def test_tune_record_for_this_card_steers_auto(cuda, tmp_path, monkeypatch):
+    """A record gated to this card picks `auto`'s backend (its tiled key
+    for the 1080p-ss2 histogram, past L2) and the flush size; the
+    repo's TPU record is skipped."""
+    import json
+    import os
+
+    from cuburn_tpu_torch.profile import get_profile
+    monkeypatch.setattr(trender, "_TUNE_ANNOUNCED", set())
+    monkeypatch.delenv("CUBURN_ITERS_PER_CHUNK", raising=False)
+    rec = {"device": torch.cuda.get_device_name(cuda),
+           "hist_backend": "scatter_sorted",
+           "hist_backend_tiled": "pallas_rgb16",
+           "flush_records": 1 << 21, "tiled_flush_records": 1 << 23}
+    path = tmp_path / "tune.json"
+    path.write_text(json.dumps(rec))
+    monkeypatch.setenv("CUBURN_TUNE_FILE", str(path))
+    small = RenderProfile(width=32, height=32, quality=5, batch=1024)
+    r = trender.Renderer(sierpinski(), small)
+    assert r.backend == "scatter_sorted"
+    assert r.profile.iters_per_chunk == (1 << 21) // 1024
+    big = get_profile("1080p")
+    r = trender.Renderer(full_feature(), big)
+    assert trender.histogram_tiled(r.cam.n_bins, r.device)
+    assert r.backend == "pallas_rgb16"
+    assert r.profile.iters_per_chunk == (1 << 23) // big.batch
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.setenv("CUBURN_TUNE_FILE",
+                       os.path.join(repo, "cuburn_tune.json"))
+    r = trender.Renderer(full_feature(), big)
+    assert r.backend == "pallas_win"
+    assert r.profile.iters_per_chunk == trender.DEFAULT_ITERS_PER_CHUNK
+
+
+def test_native_encoder_in_use(cuda):
+    from cuburn_tpu_torch import output
+    assert output.encoder() == "native"
+
+
+# the __global__ functions behind each launch counter
+TRACE_NAMES = {"win_flush": ("win_flush_kernel",),
+               "bitonic_sort": ("first_pass_kernel", "later_pass_kernel",
+                                "global_pass_kernel")}
+
+
+def test_trace_dir_holds_the_hand_kernels(cuda, tmp_path):
+    """A --trace-dir render's trace holds each hand kernel's launches as
+    kernel events, as many as the launch counters count."""
+    import json
+
+    from cuburn_tpu_torch import main as tmain
+    flush.LAUNCHES["win_flush"] = 0
+    tiled_sort.LAUNCHES["bitonic_sort"] = 0
+    assert tmain.main(["gallery:full_feature", "--width", "256", "--height",
+                       "256", "--quality", "20", "-o",
+                       str(tmp_path / "t.png"), "--trace-dir",
+                       str(tmp_path / "tr")]) == 0
+    counts = {"win_flush": flush.LAUNCHES["win_flush"],
+              "bitonic_sort": tiled_sort.LAUNCHES["bitonic_sort"]}
+    with open(tmp_path / "tr" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    for name, fns in TRACE_NAMES.items():
+        assert counts[name] > 0
+        assert sum(any(fn in k for fn in fns) for k in kernels) == \
+            counts[name]

@@ -36,6 +36,16 @@ TIMES = (0.0, 0.0, 0.0)
 SEED = 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_tune_record(tmp_path_factory):
+    """No tune record reaches these tests: CUBURN_TUNE_FILE names a file
+    that does not exist (a test that wants a record sets it itself)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CUBURN_TUNE_FILE",
+                  str(tmp_path_factory.mktemp("tune") / "none.json"))
+        yield
+
+
 def _over_the_wire(genome):
     """The genome a worker renders: its JSON form, whose palettes are
     8-bit hex."""

@@ -31,6 +31,16 @@ from cuburn_tpu_torch.ops import filtering as tfl  # noqa: E402
 T = torch.as_tensor
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_tune_record(tmp_path_factory):
+    """No tune record reaches these tests: CUBURN_TUNE_FILE names a file
+    that does not exist (a test that wants a record sets it itself)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CUBURN_TUNE_FILE",
+                  str(tmp_path_factory.mktemp("tune") / "none.json"))
+        yield
+
+
 def _img(seed, h=30, w=34, sparse=0.5):
     rs = np.random.RandomState(seed)
     img = rs.rand(h, w, 4).astype(np.float32) * 3.0

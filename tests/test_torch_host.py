@@ -48,6 +48,16 @@ TIMES = (0.0, 0.37, 1.0)
 FORBIDDEN = {"cuburn_tpu", "jax", "jaxlib"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_tune_record(tmp_path_factory):
+    """No tune record reaches these tests: CUBURN_TUNE_FILE names a file
+    that does not exist (a test that wants a record sets it itself)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CUBURN_TUNE_FILE",
+                  str(tmp_path_factory.mktemp("tune") / "none.json"))
+        yield
+
+
 def _port_sources():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                          REPO / "kernel_ab.py"]
@@ -86,7 +96,8 @@ def test_every_port_module_imports_with_jax_blocked():
     assert "cuburn_tpu_torch.ops.interp" in mods
     assert {"cuburn_tpu_torch.parallel", "cuburn_tpu_torch.parallel.launch",
             "cuburn_tpu_torch.parallel.shard",
-            "cuburn_tpu_torch.parallel.farm"} <= set(mods)
+            "cuburn_tpu_torch.parallel.farm", "cuburn_tpu_torch.retune",
+            "cuburn_tpu_torch.native"} <= set(mods)
     script = (
         "import importlib, sys\n"
         "sys.modules['cuburn_tpu'] = sys.modules['jax'] = None\n"
@@ -197,11 +208,14 @@ def test_png_pixels_match_jax(tmp_path):
     assert np.asarray(Image.open(io.BytesIO(png))).shape == (9, 31, 4)
 
 
-def test_y4m_frames_match_jax_plain_path():
-    """The port's Y4M sink writes the JAX package's numpy-path bytes."""
+def test_y4m_frames_match_jax_plain_path(monkeypatch):
+    """The port's Y4M sink on its Python converter writes the JAX
+    package's numpy-path bytes (with the C encoder built it writes
+    fastout's: tests/test_torch_tools.py)."""
     rs = np.random.RandomState(5)
     img = rs.randint(0, 256, (6, 10, 4)).astype(np.uint8)
     t, j = io.BytesIO(), io.BytesIO()
+    monkeypatch.setattr(toutput, "encoder", lambda: "python")
     toutput.Y4MSink(t, 10, 6).write_frame(img)
     saved, joutput._fastout = joutput._fastout, None
     try:

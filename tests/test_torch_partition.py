@@ -57,6 +57,16 @@ FAST = RenderProfile(width=48, height=48, quality=30, batch=1024,
 PACKED_BACKENDS = ("pallas", "pallas_merged", "pallas_win", "pallas_rgb16")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_tune_record(tmp_path_factory):
+    """No tune record reaches these tests: CUBURN_TUNE_FILE names a file
+    that does not exist (a test that wants a record sets it itself)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CUBURN_TUNE_FILE",
+                  str(tmp_path_factory.mktemp("tune") / "none.json"))
+        yield
+
+
 def _renderer(genome, **fields):
     return trender.Renderer(genome, dataclasses.replace(FAST, **fields),
                             device="cpu")

@@ -39,6 +39,16 @@ from cuburn_tpu_torch import render as trender  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_tune_record(tmp_path_factory):
+    """No tune record reaches these tests: CUBURN_TUNE_FILE names a file
+    that does not exist (a test that wants a record sets it itself)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CUBURN_TUNE_FILE",
+                  str(tmp_path_factory.mktemp("tune") / "none.json"))
+        yield
+
+
 def _inject_jax_state(monkeypatch):
     """Make the port's Renderer start from the trajectories JAX's
     Renderer seeds for the same seed (threefry via init_state)."""
@@ -178,19 +188,16 @@ def test_cli_renders_a_still_on_cpu(tmp_path, capsys):
     assert "scatter on cpu" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--devices", "2"], ["--trace-dir", "tr"],
-                                  ["--reduce-scatter"]])
+@pytest.mark.parametrize("flag", [["--devices", "2"], ["--reduce-scatter"]])
 def test_cli_refuses_unported_flags(flag, monkeypatch):
-    """--trace-dir is not ported yet and is refused.  --devices and
-    --reduce-scatter are ported (tests/test_torch_shard.py renders
-    them on the CPU); they are refused where they cannot run:
-    --devices 2 on CUDA without a GPU exits instead of falling back to
-    the CPU, and --reduce-scatter without --devices exits with the JAX
-    CLI's message."""
+    """--devices and --reduce-scatter are ported
+    (tests/test_torch_shard.py renders them on the CPU); they are
+    refused where they cannot run: --devices 2 on CUDA without a GPU
+    exits instead of falling back to the CPU, and --reduce-scatter
+    without --devices exits with the JAX CLI's message."""
     from cuburn_tpu_torch import main as tmain
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     why = {"--devices": "--devices 2: no CUDA device",
-           "--trace-dir": "not ported",
            "--reduce-scatter": "requires --devices N>1"}[flag[0]]
     on_cpu = [] if flag[0] == "--devices" else ["--cpu"]
     with pytest.raises(SystemExit, match=why):

@@ -70,6 +70,16 @@ SIERPINSKI = RenderProfile(width=64, height=64, quality=40, batch=2048,
                            hist_backend="scatter")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_tune_record(tmp_path_factory):
+    """No tune record reaches these tests: CUBURN_TUNE_FILE names a file
+    that does not exist (a test that wants a record sets it itself)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CUBURN_TUNE_FILE",
+                  str(tmp_path_factory.mktemp("tune") / "none.json"))
+        yield
+
+
 def _profile(backend):
     return dataclasses.replace(FAST, hist_backend=backend)
 
@@ -437,7 +447,8 @@ def test_a_failing_rank_ends_the_run():
     whichever the parent sees first), long before the timeout."""
     t0 = time.perf_counter()
     with pytest.raises(torch.multiprocessing.ProcessRaisedException,
-                       match="rank 1 fails|Connection reset"):
+                       match="rank 1 fails|Connection reset|"
+                             "Connection closed by peer"):
         launch.spawn(_fail_in_rank_1, ["cpu", "cpu"], "gloo", timeout_s=60)
     assert time.perf_counter() - t0 < 45
 
