@@ -8,7 +8,9 @@ CUDA toolkit.  Phases, each printed on its own line:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    compile every csrc/*.cu kernel with nvcc (sm_90a), one
-              nvcc process per source, all started together
+              nvcc process per source, all started together; the
+              seconds of each, and the registers and spills ptxas
+              reports for chaos_iterate.cu
   3. kernel   the windowed-flush kernel (win_flush.cu) against its plain
               PyTorch version at the main path's shapes (2^22 records
               into the 8.63 M-bin 1080p-ss2 histogram): density
@@ -22,8 +24,9 @@ CUDA toolkit.  Phases, each printed on its own line:
               (`device_ms`), and the bound from the bytes the flush must
               move
   4. render   Renderer(full_feature, 1080p profile at quality Q)
-              .render_frame on cuda through the kernels (the sort and
-              win_flush, each launched); the PNG goes to smoke_out/ in
+              .render_frame on cuda through the kernels (the chaos game
+              once a chunk, the sort and win_flush, each launched); the
+              PNG goes to smoke_out/ in
               the checkout.  Then the records of the first two flushes
               of that render (the first holds the fuse steps) against
               the synthetic mix of phases 3 and 6: junk share, touched
@@ -145,7 +148,24 @@ CUDA toolkit.  Phases, each printed on its own line:
               PNG's the frame, the native YCbCr equal to the fixed-point
               formula; it fails where the native encoder is not in use
               (the Y4M sink's; write_image keeps the Python PNG).
+ 13. chaos    the chaos-game kernel (chaos_iterate.cu) on full_feature
+              at 1080p ss2, batch 2^17, 32 steps a chunk.  (a) One chunk
+              from the same state (two chunks past the fuse) against its
+              plain version, the eager iterate_step loop: RNG words and
+              selected xforms exact after 32 steps, step 1's records
+              equal in >= 99.9% of lanes and positions within rtol
+              1e-4 in >= 99.9%, the records' agreement at every step;
+              the chunk's ms and device ms, the plain version's, the
+              bound.  (b) The quality-Q still through the kernel and
+              through the eager loop in turns (kernel, eager, eager,
+              kernel; seeds 1, 1, 2, 2): iterate_s of each, one launch
+              a chunk and none through the eager loop, TV distance under
+              3x the eager loop's two-seed floor.  (c) A q1000 still
+              through the kernel: iterate_s, samples/s, launches, mass
+              == plotted; once more under torch.profiler: the device's
+              busy share and its time by kernel.
 
+Every render phase counts the chaos game's launches, one a chunk.
 Every phase but 12a runs with CUBURN_TUNE_FILE pointing at a file that
 does not exist, so no tune record moves the launch counts.  Then one
 JSON line describing each kernel, the nvidia-smi line, and last
@@ -179,6 +199,7 @@ KERNELS = {
     "win_flush_rgb16": ("win_flush_rgb16",
                         "cuburn_tpu/ops/pallas_hist.py:305"),
     "bitonic_sort": ("bitonic_sort", "cuburn_tpu/ops/pallas_sort.py:40"),
+    "chaos_iterate": ("chaos_iterate", "bench/fusedprobe.py:61"),
 }
 # the backend whose render drives each flush kernel
 RENDER_BACKENDS = {"packed_flush": "pallas", "merged_flush": "pallas_merged",
@@ -218,6 +239,7 @@ TRACE_KERNELS = {
     "win_flush_rgb16": ("rgb16_tiles_kernel", "rgb16_resolve_kernel"),
     "bitonic_sort": ("first_pass_kernel", "later_pass_kernel",
                      "global_pass_kernel"),
+    "chaos_iterate": ("chaos_iterate_kernel",),
 }
 # CUBURN_TUNE_FILE for every phase but the tuner's: a path that does not
 # exist, so no tune record in the working directory moves the flush
@@ -637,18 +659,20 @@ def tv_distance(a, b):
 
 def phase_render(torch, flush, tiled_sort, tit, write_image, r, quality):
     """The main path on the card (phase 4): returns the launches of its
-    kernels (the flush and the sort) during render_frame, copies of the
-    records of the first two flushes of a second pass, and the
-    frame."""
+    kernels (the chaos game, the flush and the sort) during
+    render_frame, copies of the records of the first two flushes of a
+    second pass, and the frame."""
     check(r.backend == "pallas_win",
           f"backend {r.backend}, expected pallas_win")
-    flush.LAUNCHES["win_flush"] = 0
-    tiled_sort.LAUNCHES["bitonic_sort"] = 0
+    reset_launches(flush, tiled_sort)
     img, stats = r.render_frame(0.0, seed=1)
-    launches = {"win_flush": flush.LAUNCHES["win_flush"],
-                "bitonic_sort": tiled_sort.LAUNCHES["bitonic_sort"]}
+    now = launches_now(flush, tiled_sort)
+    launches = {name: now[name] for name in ("win_flush", "bitonic_sort",
+                                             "chaos_iterate")}
     for name, count in launches.items():
         check(count > 0, f"the 1080p render launched no {name}")
+    check(launches["chaos_iterate"] == launches["win_flush"],
+          f"{launches}: the chaos game not once a chunk")
     check(stats.plotted_samples > 0, "no samples plotted")
     check(img.shape == (1080, 1920, 4), f"image shape {img.shape}")
     check(bool(img[..., :3].any()), "the image is black")
@@ -805,8 +829,8 @@ def phase_flush_mix(torch, flush, sort, thist, flushes, n_bins, acc_width,
           **{f"{k}_max_abs_err": v for k, v in errs.items()}, **med)
 
 
-def phase_render_backend(torch, flush, tit, Renderer, genome, get_profile,
-                         name, quality):
+def phase_render_backend(torch, flush, tiled_sort, tit, Renderer, genome,
+                         get_profile, name, quality):
     """full_feature at 1080p through one more kernel's backend (phase
     7): accumulate + finalize_frame, the two halves of render_frame, so
     one pass gives the launches, the mass and the frame."""
@@ -821,14 +845,17 @@ def phase_render_backend(torch, flush, tit, Renderer, genome, get_profile,
         flushes += 1
         return wrapper(*args)
     tit.PACKED_FLUSHES[backend] = counted
-    flush.LAUNCHES[name] = 0
+    reset_launches(flush, tiled_sort)
     hist, stats = r.accumulate(0.0, seed=1)
     img = r.finalize_frame(hist, 0.0, stats)
     launches = flush.LAUNCHES[name]
+    chaos_launches = launches_now(flush, tiled_sort)["chaos_iterate"]
     tit.PACKED_FLUSHES[backend] = wrapper
     check(launches == flushes * LAUNCHES_PER_FLUSH[name] > 0,
           f"the {backend} render launched {name} {launches} times in "
           f"{flushes} flushes, expected {LAUNCHES_PER_FLUSH[name]} a flush")
+    check(chaos_launches == flushes, f"the {backend} render launched the "
+          f"chaos game {chaos_launches} times in {flushes} chunks")
     check(bool(torch.isfinite(hist).all()),
           f"{backend}: non-finite histogram")
     mass = float(hist[:-1, 3].double().sum())
@@ -840,7 +867,8 @@ def phase_render_backend(torch, flush, tit, Renderer, genome, get_profile,
     cam = r.cam
     phase(7, "render", genome="full_feature", profile="1080p",
           quality=quality, bins=cam.n_bins, backend=backend, kernel=name,
-          launches=launches, flushes=flushes,
+          launches=launches, chaos_launches=chaos_launches,
+          flushes=flushes,
           plotted_samples=stats.plotted_samples,
           total_iters=stats.total_iters, mass=mass,
           samples_per_s=stats.samples_per_sec,
@@ -877,7 +905,8 @@ def spark(animated_spark, ftype="gaussian"):
 
 
 def reset_launches(flush, tiled_sort):
-    for counts in (flush.LAUNCHES, tiled_sort.LAUNCHES):
+    from cuburn_tpu_torch.ops import chaos
+    for counts in (flush.LAUNCHES, tiled_sort.LAUNCHES, chaos.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -896,17 +925,20 @@ def frame_flushes(r, stats):
 
 
 def check_frame_launches(flush, tiled_sort, r, stats, frames, what):
-    """`frames` frames of `r` launched its flush kernel once a flush
-    (the split flush twice) and, where the flush sorts, the sort's
-    passes before each.  Returns {kernel: launches}."""
+    """`frames` frames of `r` launched the chaos game once a chunk, its
+    flush kernel once a flush (the split flush twice) and, where the
+    flush sorts, the sort's passes before each.  Returns {kernel:
+    launches}."""
     name = FLUSH_KERNEL[r.backend]
     flushes, per_chunk = frame_flushes(r, stats)
     passes = 0 if r.backend == "pallas" else len(
         tiled_sort.bitonic_schedule(1 << (per_chunk - 1).bit_length()))
     got = {name: flush.LAUNCHES[name],
-           "bitonic_sort": tiled_sort.LAUNCHES["bitonic_sort"]}
+           "bitonic_sort": tiled_sort.LAUNCHES["bitonic_sort"],
+           "chaos_iterate": launches_now(flush, tiled_sort)["chaos_iterate"]}
     want = {name: frames * flushes * LAUNCHES_PER_FLUSH[name],
-            "bitonic_sort": frames * flushes * passes}
+            "bitonic_sort": frames * flushes * passes,
+            "chaos_iterate": frames * flushes}
     check(got == want and got[name] > 0,
           f"{what}: launches {got}, expected {want}")
     if not passes:
@@ -1121,13 +1153,15 @@ def check_striped(torch, whole, sw, striped, ss, what, bf16_flushes=0):
 
 
 def launches_now(flush, tiled_sort):
-    return {**flush.LAUNCHES, **tiled_sort.LAUNCHES}
+    from cuburn_tpu_torch.ops import chaos
+    return {**flush.LAUNCHES, **tiled_sort.LAUNCHES, **chaos.LAUNCHES}
 
 
 def partition_launches(flush, tiled_sort, r, stats, n_flushes, what):
-    """The launches of `r`'s flush kernel and the sort since the last
-    reset: one flush kernel launch a flush (two for the split flush),
-    the sort's passes before each sorted flush."""
+    """The launches of `r`'s flush kernel, the sort and the chaos game
+    since the last reset: one flush kernel launch a flush (two for the
+    split flush), the sort's passes before each sorted flush, one chaos
+    game launch a chunk."""
     name = FLUSH_KERNEL[r.backend]
     per_chunk = r._batch_for(r.profile.total_iters) * r.profile.iters_per_chunk
     flushes = stats.total_iters // per_chunk
@@ -1136,9 +1170,10 @@ def partition_launches(flush, tiled_sort, r, stats, n_flushes, what):
     passes = 0 if r.backend == "pallas" else len(
         tiled_sort.bitonic_schedule(1 << (per_chunk - 1).bit_length()))
     got = {name: flush.LAUNCHES[name],
-           "bitonic_sort": tiled_sort.LAUNCHES["bitonic_sort"]}
+           "bitonic_sort": tiled_sort.LAUNCHES["bitonic_sort"],
+           "chaos_iterate": launches_now(flush, tiled_sort)["chaos_iterate"]}
     want = {name: flushes * LAUNCHES_PER_FLUSH[name],
-            "bitonic_sort": flushes * passes}
+            "bitonic_sort": flushes * passes, "chaos_iterate": flushes}
     check(got == want and got[name] > 0,
           f"{what}: launches {got}, expected {want}")
     if not passes:
@@ -1332,9 +1367,13 @@ def phase_partition(torch, flush, sort, tiled_sort, thist, tit, write_image,
     finally:
         thist.BACKENDS["scatter"] = scatter
     acc_peak = torch.cuda.max_memory_allocated()
-    check(not any(launches_now(flush, tiled_sort).values()),
-          f"4k launched a packed-record kernel: "
-          f"{launches_now(flush, tiled_sort)}")
+    n4 = launches_now(flush, tiled_sort)
+    chunks4 = s4.total_iters // (r4._batch_for(r4.profile.total_iters)
+                                 * r4.profile.iters_per_chunk)
+    check(n4.pop("chaos_iterate") == chunks4 and not any(n4.values()),
+          f"4k: launches {launches_now(flush, tiled_sort)}, expected "
+          f"chaos_iterate once a chunk ({chunks4}) and no packed-record "
+          "kernel")
     check(bool(torch.isfinite(h4).all()), "4k: non-finite histogram")
     mass = float(h4[:-1, 3].double().sum())
     check(abs(mass - s4.plotted_samples) <= 1e-4 * mass,
@@ -1515,7 +1554,8 @@ def world_1_rank(rank, device, quality):
     flushes = sg.total_iters // per_chunk
     passes = sort_passes(tiled_sort, per_chunk)
     check(launches == {"win_flush": flushes,
-                       "bitonic_sort": flushes * passes},
+                       "bitonic_sort": flushes * passes,
+                       "chaos_iterate": flushes},
           f"11a: launches {launches} for {flushes} flushes")
     out = {"flushes": flushes, "sort_passes_per_flush": passes,
            "launches_sharded": {"pallas_win": launches}, "rgb_max_abs_err": {
@@ -1645,7 +1685,8 @@ def world_2_rank(rank, device, quality):
                 flushes = sg.total_iters // per_chunk
                 passes = sort_passes(tiled_sort, per_chunk // n)
                 check(out["launches_sharded"][backend] == {
-                    "win_flush": flushes, "bitonic_sort": flushes * passes},
+                    "win_flush": flushes, "bitonic_sort": flushes * passes,
+                    "chaos_iterate": flushes},
                     f"11b rank {rank}: launches "
                     f"{out['launches_sharded'][backend]} for {flushes} "
                     f"flushes of {per_chunk // n} records")
@@ -1785,7 +1826,8 @@ def phase_sharded(torch, write_image, Renderer, animated_spark,
     phase_farm(torch, write_image, Renderer, animated_spark, get_profile, q)
     a = results["a"][0]["launches_sharded"]
     return {FLUSH_KERNEL[b]: n[FLUSH_KERNEL[b]] for b, n in a.items()} | {
-        "bitonic_sort": a["pallas_win"]["bitonic_sort"]}
+        name: a["pallas_win"][name] for name in ("bitonic_sort",
+                                                 "chaos_iterate")}
 
 
 # -- phase 12: the tools (retune.py, --trace-dir, the native encoder) ------
@@ -1830,7 +1872,8 @@ def phase_tuner(torch, flush, tiled_sort, Renderer, full_feature,
         len(rs) == 2 and all(isinstance(v, (int, float)) and v > 0
                              for v in rs) for rs in passes.values()),
           f"retune: passes {passes}")
-    for name in ("win_flush", "win_flush_rgb16", "bitonic_sort"):
+    for name in ("win_flush", "win_flush_rgb16", "bitonic_sort",
+                 "chaos_iterate"):
         check(launches[name] > 0, f"retune launched no {name}")
     picks = {key: rec.get(key) for key in (
         "hist_backend", "hist_backend_tiled", "flush_records",
@@ -1933,7 +1976,8 @@ def phase_trace(torch, flush, tiled_sort, quality=10):
                       f"the trace holds {counts[name]} {name} kernel "
                       f"events, the counters {n} launches")
             check(launches["win_flush"] > 0 and
-                  launches["bitonic_sort"] > 0,
+                  launches["bitonic_sort"] > 0 and
+                  launches["chaos_iterate"] > 0,
                   f"the traced render launched {launches}")
             run.update(trace_mb=os.path.getsize(trace) / 1e6,
                        kernel_events=n_kernels, events=n_events,
@@ -2036,14 +2080,222 @@ def phase_encoder(frames):
               ycbcr_share_apart=float((step > 0).mean()))
 
 
+# -- phase 13: the chaos game (chaos_iterate.cu) ---------------------------
+
+CHAOS_BATCH = 1 << 17
+CHAOS_STEPS = 32
+# float operations of one full_feature lane-step, a transcendental,
+# division, compare or conversion one each (a lower bound: the integer
+# RNG and address work left out): the selection over 3 CDF entries, the
+# affine, r2 / r / two atan2s, the six variations of the union and
+# their sums, the post transform, the colour, the badvalue test, the
+# final xform (affine, precalc, bubble, linear, sums, colour), the
+# projection and the record
+FULL_FEATURE_STEP_OPS = {
+    "select": 3, "affine": 8, "precalc": 6, "linear": 2, "spherical": 4,
+    "julian": 17, "pdj": 12, "curl": 25, "blur": 10, "sums": 12,
+    "post": 8, "color": 4, "badvalue": 6, "final": 29, "project": 15,
+    "record": 5}
+
+
+@contextlib.contextmanager
+def eager_loop(it):
+    """The Renderer's chunks through the kernel's plain version (the
+    eager iterate_step loop of ops/iterate.py, `it`) instead of the
+    kernel."""
+    kernel = it.iterate_records
+    it.iterate_records = it.iterate_records_reference
+    try:
+        yield
+    finally:
+        it.iterate_records = kernel
+
+
+def chaos_chunk(torch, chaos, it, r, seed):
+    """(plan, state) for a chunk of Renderer r's still at t = 0: its
+    sample's plan and trajectories two chunks in, past the fuse."""
+    from cuburn_tpu_torch.params import params_from_genome
+    params = params_from_genome(r.genome.eval_at(0.0), r.device)
+    state, cdf, ppu, _n, _per_chunk = r._sample_setup(
+        params, seed, r.profile.total_iters)
+    check(state.x.shape[0] == CHAOS_BATCH,
+          f"batch {state.x.shape[0]}, expected {CHAOS_BATCH}")
+    cbits, tot_bits = it.record_bits(r.key, r.cam, r.backend, r.op_bits)
+    plan = chaos.plan(r.key, r.cam, params, cdf, ppu, r.profile.fuse,
+                      cbits, tot_bits, r.op_bits)
+    warm = torch.empty((2 * CHAOS_STEPS, CHAOS_BATCH), dtype=torch.int64,
+                       device=r.device)
+    return plan, it.iterate_records(plan, state, warm)
+
+
+def device_busy(torch, fn):
+    """(fn()'s result, wall ms, device ms by kernel name) of one call
+    under torch.profiler; {} when the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us:
+                by_name[e.key] = us / 1e3
+    return out, wall, by_name
+
+
+def phase_chaos(torch, flush, tiled_sort, Renderer, full_feature,
+                get_profile, quality):
+    """The chaos game's kernel on the main path's chunk and renders
+    (phase 13).  Returns its times, bound and position error."""
+    from cuburn_tpu_torch.ops import chaos
+    from cuburn_tpu_torch.ops import iterate as it
+    r = Renderer(full_feature(), get_profile("1080p", quality=quality))
+    check(r.backend == "pallas_win" and
+          r.profile.iters_per_chunk == CHAOS_STEPS,
+          f"backend {r.backend}, {r.profile.iters_per_chunk} steps a chunk")
+    B, K, dev = CHAOS_BATCH, CHAOS_STEPS, r.device
+    plan, state = chaos_chunk(torch, chaos, it, r, seed=1)
+
+    # (a) one chunk from the same state: the draws and the selection
+    # exact after K steps, step 1's records and positions bounded
+    rec_k = torch.empty((K, B), dtype=torch.int64, device=dev)
+    rec_p = torch.empty_like(rec_k)
+    sk = it.iterate_records(plan, state, rec_k)
+    sp = it.iterate_records_reference(plan, state, rec_p)
+    torch.cuda.synchronize()
+    check(torch.equal(sk.rng, sp.rng), "chaos: RNG words differ after "
+          f"{K} steps")
+    check(torch.equal(sk.last_xf, sp.last_xf),
+          f"chaos: the selected xforms differ after {K} steps")
+    agree = (rec_k == rec_p).double().mean(dim=1).tolist()
+    live = float(((rec_k[0] >> plan.tot_bits) != r.cam.junk_bin)
+                 .double().mean())
+    check(agree[0] >= 0.999 and live > 0.5,
+          f"chaos: step 1's records agree in {agree[0]} of lanes "
+          f"({live} plotted)")
+    one_k = torch.empty((1, B), dtype=torch.int64, device=dev)
+    one_p = torch.empty_like(one_k)
+    s1k = it.iterate_records(plan, state, one_k)
+    s1p = it.iterate_records_reference(plan, state, one_p)
+    kept = (s1k.age > 0) & (s1p.age > 0)
+    err = max(float((a - b)[kept].abs().max())
+              for a, b in ((s1k.x, s1p.x), (s1k.y, s1p.y)))
+    close = float((torch.isclose(s1k.x, s1p.x, rtol=1e-4, atol=1e-5)
+                   & torch.isclose(s1k.y, s1p.y, rtol=1e-4, atol=1e-5))
+                  .double().mean())
+    check(close >= 0.999 and torch.equal(one_k, rec_k[:1]),
+          f"chaos: step 1's positions within rtol 1e-4 in {close} of lanes")
+
+    # the chunk's time: kernel, plain version, bound
+    t = medians(torch, {
+        "ms": lambda: it.iterate_records(plan, state, rec_k),
+        "plain_ms": lambda: it.iterate_records_reference(plan, state,
+                                                            rec_p)},
+        reps=5)
+    # the function's bytes at its own widths: a lane's state (x, y,
+    # colour f32; last_xf, age i32; four u32 RNG words) in and out, a
+    # 4-byte record a lane-step.  The port's tensors widen the ints and
+    # the records to int64: layout_bytes, a reading beside the bound
+    state_bytes = B * (3 * 4 + 2 * 4 + 4 * 4)
+    nbytes = 2 * state_bytes + K * B * 4
+    layout_bytes = 2 * B * (3 * 4 + 2 * 8 + 4 * 8) + K * B * 8
+    ops_per_step = sum(FULL_FEATURE_STEP_OPS.values())
+    b_ms, b_by = bound(nbytes, ops_per_step * K * B)
+    times = {**t, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    phase(13, "chaos", part="a_chunk", genome="full_feature",
+          profile="1080p", batch=B, steps=K, rng_exact=True,
+          last_xf_exact=True, records_agree_by_step=agree,
+          plotted_step_1=live, positions_close_step_1=close,
+          max_abs_err_step_1=err, ops_per_lane_step=ops_per_step,
+          bound_bytes=nbytes, bound_bytes_ms=bound(nbytes)[0],
+          bound_ops_ms=bound(0, ops_per_step * K * B)[0],
+          layout_bytes=layout_bytes, layout_bytes_ms=bound(layout_bytes)[0],
+          **times)
+    del rec_k, rec_p, sk, sp
+
+    # (b) the still through the kernel and the eager loop in turns
+    flushes = -(-r.profile.total_iters // (B * K))
+    hists, runs = {}, []
+    for loop, seed in (("kernel", 1), ("eager", 1), ("eager", 2),
+                       ("kernel", 2)):
+        reset_launches(flush, tiled_sort)
+        with (eager_loop(it) if loop == "eager"
+              else contextlib.nullcontext()):
+            hists[loop, seed], st = r.accumulate(0.0, seed=seed)
+        n = chaos.LAUNCHES["chaos_iterate"]
+        check(n == (flushes if loop == "kernel" else 0),
+              f"chaos: the {loop} render launched the kernel {n} times, "
+              f"{flushes} chunks")
+        runs.append({"loop": loop, "seed": seed, "iterate_s": st.iterate_s,
+                     "samples_per_s": st.samples_per_sec,
+                     "chaos_launches": n})
+    floor = tv_distance(hists["eager", 1], hists["eager", 2])
+    tv = [tv_distance(hists["kernel", s], hists["eager", s]) for s in (1, 2)]
+    check(max(tv) < 3 * floor, f"chaos: q{quality} TV kernel/eager {tv} "
+          f"against 3x the floor {floor}")
+    del hists
+    phase(13, "chaos", part="b_turns", quality=quality, flushes=flushes,
+          runs=runs, tv_kernel_vs_eager=tv, tv_eager_two_seed_floor=floor,
+          limit=3 * floor)
+
+    # (c) a q1000 still through the kernel, then once under the profiler
+    r1k = Renderer(full_feature(), get_profile("1080p", quality=1000))
+    reset_launches(flush, tiled_sort)
+    hist, st = r1k.accumulate(0.0, seed=3)
+    n = launches_now(flush, tiled_sort)
+    check(n["chaos_iterate"] == n["win_flush"] > 0,
+          f"chaos: the q1000 still launched {n}")
+    check(bool(torch.isfinite(hist).all()), "q1000: non-finite histogram")
+    mass = float(hist[:-1, 3].double().sum())
+    check(abs(mass - st.plotted_samples) <= 1e-4 * mass,
+          f"q1000: histogram mass {mass} != plotted {st.plotted_samples}")
+    del hist
+    (_h, st2), wall, by_name = device_busy(
+        torch, lambda: r1k.accumulate(0.0, seed=4))
+    busy = sum(by_name.values())
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    phase(13, "chaos", part="c_q1000", quality=1000,
+          launches={k: v for k, v in n.items() if v},
+          iterate_s=st.iterate_s, samples_per_s=st.samples_per_sec,
+          plotted_samples=st.plotted_samples, total_iters=st.total_iters,
+          profiled_wall_ms=wall, profiled_iterate_s=st2.iterate_s,
+          device_busy_ms=busy if by_name else "not measured",
+          device_busy_share=busy / wall if by_name else "not measured",
+          device_ms_by_kernel=top)
+    return times, err
+
+
 def build_all(build):
-    """Every kernel library, one nvcc each, all started together."""
+    """Every kernel library, one nvcc each, all started together:
+    {library: (path, build seconds)}."""
+    def timed_build(lib):
+        t0 = time.perf_counter()
+        path = build.build(lib)
+        return path, time.perf_counter() - t0
     libs = sorted({lib for lib, _ in KERNELS.values()})
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
-        paths = dict(zip(libs, pool.map(build.build, libs)))
+        built = dict(zip(libs, pool.map(timed_build, libs)))
     for lib in libs:
         build.load(lib)
-    return paths
+    return built
+
+
+def ptxas_lines(path):
+    """The registers and spills that ptxas reported for a library built
+    with -Xptxas -v (its .log), else []."""
+    log = path.with_suffix(".log")
+    if not log.exists():
+        return []
+    return [ln.strip() for ln in log.read_text().splitlines()
+            if "Compiling entry" in ln or "registers" in ln
+            or "spill" in ln]
 
 
 def main(argv=None) -> int:
@@ -2082,7 +2334,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     libs = build_all(build)
     phase(2, "build", seconds=round(time.perf_counter() - t0, 3),
-          libraries={k: os.path.relpath(v, REPO) for k, v in libs.items()})
+          libraries={k: os.path.relpath(v, REPO)
+                     for k, (v, _s) in libs.items()},
+          library_seconds={k: round(s, 3) for k, (_v, s) in libs.items()},
+          ptxas={k: ptxas_lines(v) for k, (v, _s) in libs.items()
+                 if ptxas_lines(v)})
 
     main_r = Renderer(full_feature(),
                       get_profile("1080p", quality=args.quality))
@@ -2112,8 +2368,8 @@ def main(argv=None) -> int:
     half = max(args.quality // 2, 1)
     for name in RENDER_BACKENDS:
         launches[name] = phase_render_backend(
-            torch, flush, tit, Renderer, full_feature(), get_profile, name,
-            half)
+            torch, flush, tiled_sort, tit, Renderer, full_feature(),
+            get_profile, name, half)
     for backend in ("pallas", "pallas_merged", "pallas_rgb16", "scatter",
                     "scatter_sorted", "sortcum"):
         phase_parity(torch, Renderer, RenderProfile, full_feature(),
@@ -2133,6 +2389,9 @@ def main(argv=None) -> int:
                 get_profile)
     traced_launches = phase_trace(torch, flush, tiled_sort)
     phase_encoder({"still": main_frame, "animation": anim_frame})
+    times["chaos_iterate"], errs["chaos_iterate"] = phase_chaos(
+        torch, flush, tiled_sort, Renderer, full_feature, get_profile,
+        args.quality)
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu",

@@ -23,6 +23,11 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# flags of one library on top of NVCC_FLAGS.  The chaos game rounds every
+# float op as PyTorch does: no FMA contraction, and no --use_fast_math
+# (which would also fold away its isfinite test); ptxas reports its
+# registers and spills into the library's .log.
+LIBRARY_FLAGS = {"chaos_iterate": ("-fmad=false", "-Xptxas", "-v")}
 
 _LOADED: dict = {}
 # (library, entry) -> its ctypes function with argtypes and restype set
@@ -48,32 +53,37 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from csrc/<name>.cu with NVCC_FLAGS
-    lives.  The name changes with the source and with any csrc/*.cuh
-    header, so a changed header rebuilds every library."""
+    """Where the library built from csrc/<name>.cu with NVCC_FLAGS and
+    its LIBRARY_FLAGS lives.  The name changes with the source and with
+    any csrc/*.cuh header, so a changed header rebuilds every library."""
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
+    if name in LIBRARY_FLAGS:
+        digest.update(" ".join(LIBRARY_FLAGS[name]).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless the library for this exact source
-    already exists; returns the library path.  Raises RuntimeError with
-    the compiler's output if nvcc fails."""
+    already exists; returns the library path.  What the compiler prints
+    on success goes to the library's .log beside it.  Raises
+    RuntimeError with the compiler's output if nvcc fails."""
     out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC_DIR / f"{name}.cu")]
+    cmd = [find_nvcc(), *NVCC_FLAGS, *LIBRARY_FLAGS.get(name, ()), "-o",
+           str(tmp), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed building {name}.cu "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
+    if proc.stdout or proc.stderr:
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)    # atomic: concurrent builders never see half
     return out
 

@@ -1,0 +1,287 @@
+"""The chaos game as one hand-written CUDA kernel: plan and launch.
+
+Port of the fused chaos-game Pallas kernel (`bench/fusedprobe.py`
+`kernel`: `iterate_step` for T steps on resident state, a (T, B) log
+of packed records).  `csrc/chaos_iterate.cu` advances every trajectory
+n_iters steps in one launch, one thread a trajectory, and writes one
+record a step: the packed record that the flushes read
+(`launch_records`), or the address, palette coordinate and opacity of
+the unpacked path (`launch_full`).  Both take CUDA tensors only and
+raise on anything else.  `ops/iterate.py` owns the dispatch
+(`iterate_records`, `iterate_full`): the launch on a CUDA tensor, and
+on a CPU tensor the plain version, its eager `iterate_step` loop.
+
+A launch reads one `ChaosArgs` struct, passed by value: the state and
+output tensors and the genome's tensors as pointers, and the structure
+key, camera and record layout as ints.  Nothing in it is read back
+from the device, so a chunk costs no sync.  `plan` gathers a genome
+evaluation's tensors once per sample.  `LAUNCHES` counts kernel
+launches in this process; callers reset it to count a run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+
+from cuburn_tpu_torch.genome.specs import StructureKey
+from cuburn_tpu_torch.genome.variations import VARIATION_PARAMS
+from cuburn_tpu_torch.kernels import build as _build
+from cuburn_tpu_torch.ops.camera import CameraSpec
+from cuburn_tpu_torch.ops.xform import build_xform_table
+
+LIBRARY = "chaos_iterate"
+LAUNCHES = {"chaos_iterate": 0}
+
+# the registry's size: a key's union holds each variation at most once
+MAX_VARS = 100
+# ChaosArgs.scal: the final xform's affine (6) and post (6), colour and
+# speed, center (2), rot_center (2), ppu, rotate, cam3d (5); the final
+# xform's weights and knobs follow
+SCAL_FIXED = 25
+
+# ops/iterate.IterState's tensors, in ChaosArgs's order
+STATE_FIELDS = ("x", "y", "color", "last_xf", "age", "rng")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+class ChaosArgs(ctypes.Structure):
+    """csrc/chaos_iterate.cu's ChaosArgs, field for field."""
+    _fields_ = [(name, _P) for name in (
+        *STATE_FIELDS, *(f + "_out" for f in STATE_FIELDS), "rec", "pcolor",
+        "opacity", "table", "cdf", "scal")] + [(name, _I) for name in (
+            "batch", "n_iters", "n_xforms", "n_cols", "has_xaos",
+            "post_col", "wcol", "pcol", "n_vars", "has_final",
+            "final_has_post", "final_n_vars", "final_wcol", "final_pcol",
+            "cam_mode", "no_rotation", "ss", "acc_width", "acc_height",
+            "full_acc_height", "tile_row0", "junk_bin", "fuse", "cbits",
+            "tot_bits", "op_bits", "unpacked")] + [
+        (name, _I * MAX_VARS) for name in (
+            "var_id", "var_par", "final_var_id", "final_var_par")]
+
+
+class VariationArgs(ctypes.Structure):
+    """csrc/chaos_iterate.cu's VariationArgs: one variation at n points
+    (chaos_variation, for the tests)."""
+    _fields_ = [(name, _P) for name in (
+        "tx", "ty", "w", "params", "aff", "rng", "dx", "dy")] + [
+        ("n", _I), ("id", _I)]
+
+
+@dataclass
+class ChaosPlan:
+    """What every chunk of one genome evaluation's chaos game reads:
+    the step's inputs (as `iterate_step` takes them), the record layout,
+    and the tensors the kernel reads: `table` (build_xform_table) and
+    `scal` (the final xform's and the camera's floats, SCAL_FIXED
+    layout)."""
+    key: StructureKey
+    cam: CameraSpec
+    params: object
+    cdf_rows: torch.Tensor
+    ppu: torch.Tensor
+    fuse: int
+    cbits: int
+    tot_bits: int
+    op_bits: int
+    table: torch.Tensor
+    scal: torch.Tensor
+
+
+def plan(key: StructureKey, cam: CameraSpec, params, cdf_rows, ppu,
+         fuse: int, cbits: int = 0, tot_bits: int = 0, op_bits: int = 0,
+         table=None) -> ChaosPlan:
+    """The ChaosPlan of one genome evaluation; `table` is reused when
+    given.  Device ops only: a handful of small copies."""
+    if table is None:
+        table = build_xform_table(key, params)
+    dev = table.device
+    ppu = torch.as_tensor(ppu, dtype=torch.float32, device=dev)
+    scal = torch.cat([t.reshape(-1).to(torch.float32) for t in (
+        params.final_affine, params.final_post, params.final_color,
+        params.final_color_speed, params.center, params.rot_center, ppu,
+        params.rotate, params.cam3d, params.final_var_weights,
+        params.final_var_params)])
+    return ChaosPlan(key=key, cam=cam, params=params,
+                     cdf_rows=cdf_rows.contiguous(), ppu=ppu, fuse=fuse,
+                     cbits=cbits, tot_bits=tot_bits, op_bits=op_bits,
+                     table=table.contiguous(), scal=scal)
+
+
+# -- the launch -------------------------------------------------------------
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library."""
+    return _build.load(LIBRARY)
+
+
+def full_outputs(state, n_iters: int):
+    """Empty (addr int64, pcolor f32, opacity f32) logs of n_iters steps
+    of `state`'s lanes."""
+    batch, dev = state.x.shape[0], state.x.device
+    return (torch.empty((n_iters, batch), dtype=torch.int64, device=dev),
+            torch.empty((n_iters, batch), dtype=torch.float32, device=dev),
+            torch.empty((n_iters, batch), dtype=torch.float32, device=dev))
+
+
+def empty_state(state):
+    """An IterState of empty tensors shaped like `state`'s."""
+    return dataclasses.replace(state, **{
+        f: torch.empty_like(getattr(state, f)) for f in STATE_FIELDS})
+
+
+_IDS: dict = {}
+
+
+def variation_ids(lib: ctypes.CDLL) -> dict:
+    """{variation name: its id in the library's switch}, read from the
+    library itself; checks that its ChaosArgs is this module's."""
+    ids = _IDS.get(lib)
+    if ids is None:
+        lib.chaos_variation_name.restype = ctypes.c_char_p
+        lib.chaos_variation_name.argtypes = (ctypes.c_int,)
+        n = lib.chaos_variation_count()
+        if n != MAX_VARS or lib.chaos_args_size() != \
+                ctypes.sizeof(ChaosArgs):
+            raise RuntimeError(
+                f"{LIBRARY}: {n} variations and a {lib.chaos_args_size()}"
+                f"-byte ChaosArgs; ops/chaos.py has {MAX_VARS} and "
+                f"{ctypes.sizeof(ChaosArgs)}")
+        ids = {lib.chaos_variation_name(i).decode(): i for i in range(n)}
+        _IDS[lib] = ids
+    return ids
+
+
+def _var_lists(ids: dict, names) -> tuple:
+    """(ids, offsets of each variation's first knob) of a key's union,
+    in its order: the param_slots packing."""
+    out_ids, offsets, off = [], [], 0
+    for name in names:
+        if name not in ids:
+            raise ValueError(f"{LIBRARY} has no variation {name!r}")
+        out_ids.append(ids[name])
+        offsets.append(off)
+        off += len(VARIATION_PARAMS[name])
+    return out_ids, offsets
+
+
+def _check(t: torch.Tensor, dtype, shape, dev, what: str) -> int:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or \
+            t.device != dev or not t.is_contiguous():
+        raise ValueError(
+            f"{LIBRARY}: {what} must be a contiguous {dtype} tensor of "
+            f"shape {tuple(shape)} on {dev}; got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}")
+    return t.data_ptr()
+
+
+def chaos_args(lib: ctypes.CDLL, p: ChaosPlan, state,
+               new, rec, pcolor=None,
+               opacity=None) -> ChaosArgs:
+    """The ChaosArgs of one launch of `lib`'s chaos_iterate: from
+    `state` into `new` (tensors of the same shapes), records into
+    `rec` ((n_iters, B) int64), and with `pcolor` and `opacity` the
+    unpacked path's outputs.  Checks every tensor."""
+    key, cam = p.key, p.cam
+    dev = state.x.device
+    batch, n_iters = state.x.shape[0], rec.shape[0]
+    a = ChaosArgs()
+    f32, i64 = torch.float32, torch.int64
+    for st, suffix in ((state, ""), (new, "_out")):
+        for name, dtype, shape in (
+                ("x", f32, (batch,)), ("y", f32, (batch,)),
+                ("color", f32, (batch,)), ("last_xf", i64, (batch,)),
+                ("age", i64, (batch,)), ("rng", i64, (batch, 4))):
+            setattr(a, name + suffix, _check(getattr(st, name), dtype,
+                                             shape, dev, name + suffix))
+    a.rec = _check(rec, i64, (n_iters, batch), dev, "rec")
+    a.unpacked = int(pcolor is not None)
+    if a.unpacked:
+        a.pcolor = _check(pcolor, f32, (n_iters, batch), dev, "pcolor")
+        a.opacity = _check(opacity, f32, (n_iters, batch), dev, "opacity")
+    n_x = key.n_xforms
+    n_vars = len(key.variations)
+    n_cols = p.table.shape[1]
+    a.table = _check(p.table, f32, (n_x, n_cols), dev, "table")
+    a.cdf = _check(p.cdf_rows, f32, (n_x, n_x), dev, "cdf_rows")
+    a.scal = _check(p.scal, f32, p.scal.shape, dev, "scal")
+    a.batch, a.n_iters, a.n_xforms, a.n_cols = batch, n_iters, n_x, n_cols
+    a.has_xaos = int(key.has_xaos)
+    a.post_col = 9 if key.has_post else -1
+    a.wcol = 15 if key.has_post else 9
+    a.pcol = a.wcol + n_vars
+    ids = variation_ids(lib)
+    var_id, var_par = _var_lists(ids, key.variations)
+    a.n_vars = n_vars
+    a.var_id[:n_vars], a.var_par[:n_vars] = var_id, var_par
+    if key.final_variations is not None:
+        f_id, f_par = _var_lists(ids, key.final_variations)
+        a.has_final = 1
+        a.final_has_post = int(key.final_has_post)
+        a.final_n_vars = len(f_id)
+        a.final_var_id[:len(f_id)], a.final_var_par[:len(f_id)] = f_id, f_par
+    a.final_wcol = SCAL_FIXED
+    a.final_pcol = SCAL_FIXED + p.params.final_var_weights.numel()
+    a.cam_mode = key.cam_mode
+    a.no_rotation = int(cam.no_rotation)
+    a.ss, a.acc_width, a.acc_height = cam.ss, cam.acc_width, cam.acc_height
+    a.full_acc_height, a.tile_row0 = cam.full_acc_height, cam.tile_row0
+    a.junk_bin, a.fuse = cam.junk_bin, p.fuse
+    a.cbits, a.tot_bits, a.op_bits = p.cbits, p.tot_bits, p.op_bits
+    a.keep = (p, state, new, rec, pcolor, opacity)    # the pointers' owners
+    return a
+
+
+def launch_records(p: ChaosPlan, state, recs: torch.Tensor):
+    """Advance every trajectory recs.shape[0] steps in one chaos_iterate
+    launch, filling recs ((n_iters, B) int64) with each step's packed
+    records (addr << tot_bits | colour, the xform id spliced in under
+    op_bits).  Returns the new state."""
+    new = empty_state(state)
+    _launch(p, state, new, recs)
+    return new
+
+
+def launch_full(p: ChaosPlan, state, n_iters: int):
+    """Advance every trajectory n_iters steps in one chaos_iterate
+    launch with the unpacked path's outputs: (new_state, addr (n_iters,
+    B) int64, pcolor and opacity (n_iters, B) float32), opacity
+    unclipped."""
+    new = empty_state(state)
+    addr, pcolor, opacity = full_outputs(state, n_iters)
+    _launch(p, state, new, addr, pcolor, opacity)
+    return new, addr, pcolor, opacity
+
+
+def _launch(p: ChaosPlan, state, new, rec, pcolor=None,
+            opacity=None) -> None:
+    if rec.device.type != "cuda":
+        raise ValueError(f"{LIBRARY}: the kernel runs on CUDA tensors; "
+                         f"got one on {rec.device}")
+    args = chaos_args(load(), p, state, new, rec, pcolor, opacity)
+    stream = torch.cuda.current_stream(rec.device).cuda_stream
+    _build.launch(LAUNCHES, "chaos_iterate", LIBRARY, "chaos_iterate",
+                  (_P,), stream, ctypes.addressof(args))
+
+
+def variation_args(lib: ctypes.CDLL, name: str, tx, ty, w, params, aff,
+                   rng, dx, dy) -> VariationArgs:
+    """The VariationArgs of `lib`'s chaos_variation: variation `name` at
+    the points (tx, ty) with per-point weights `w`, its knobs `params`
+    and the affine `aff` (6,), its draws advancing `rng` ((n, 4) int64)
+    in place, into dx and dy.  Every tensor on one device."""
+    n, dev, f32 = tx.shape[0], tx.device, torch.float32
+    a = VariationArgs(n=n, id=variation_ids(lib)[name])
+    for field, t, dtype, shape in (
+            ("tx", tx, f32, (n,)), ("ty", ty, f32, (n,)),
+            ("w", w, f32, (n,)),
+            ("params", params, f32, (len(VARIATION_PARAMS[name]) or 1,)),
+            ("aff", aff, f32, (6,)), ("rng", rng, torch.int64, (n, 4)),
+            ("dx", dx, f32, (n,)), ("dy", dy, f32, (n,))):
+        setattr(a, field, _check(t, dtype, shape, dev, field))
+    a.keep = (tx, ty, w, params, aff, rng, dx, dy)    # the pointers' owners
+    return a

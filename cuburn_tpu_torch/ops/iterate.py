@@ -12,11 +12,14 @@ advances in lockstep; per iteration, for every point:
              packed u32 record addr << bits | palette coordinate
 
 `iterate_accumulate` collects `iters_per_flush` steps of records and
-flushes them into the histogram once per chunk.  JAX's `scan` and
-`fori_loop` are Python loops here; each step is a few hundred small
-eager kernels.  Records are int64 tensors holding u32 values.  A frame
-whose records do not fit 32 bits (past 2^24 bins, or `packed=False`)
-flushes full (addr, rgba) records from `iterate_chunk` instead.
+flushes them into the histogram once per chunk.  On a CUDA tensor a
+chunk is one launch of the chaos-game kernel (`iterate_records`,
+`iterate_full`: ops/chaos.py, csrc/chaos_iterate.cu); on a CPU tensor
+it is the kernel's plain version, `iterate_step` below once a step, a
+few hundred small eager ops each.  Records are int64 tensors holding
+u32 values.  A frame whose records do not fit 32 bits (past 2^24 bins,
+or `packed=False`) flushes full (addr, rgba) records from
+`iterate_chunk` instead.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from cuburn_tpu_torch.genome.specs import StructureKey
+from cuburn_tpu_torch.ops import chaos
 from cuburn_tpu_torch.ops import flush as flush_mod
 from cuburn_tpu_torch.ops import histogram as hist_mod
 from cuburn_tpu_torch.ops import rng as rng_mod
@@ -252,6 +256,58 @@ def record_bits(key: StructureKey, cam: CameraSpec, backend: str,
     return cbits, cbits
 
 
+# -- a chunk of steps: the kernel on the card, the eager loop on the CPU ------
+
+def iterate_records(plan: chaos.ChaosPlan, state: IterState,
+                    recs: torch.Tensor) -> IterState:
+    """Advance every trajectory recs.shape[0] steps of `plan`, filling
+    recs ((n_iters, B) int64) with each step's packed records
+    (addr << tot_bits | colour, the xform id spliced in under op_bits).
+    Returns the new state.  A CUDA tensor launches chaos_iterate once;
+    a CPU tensor runs the plain version."""
+    if recs.device.type == "cpu":
+        return iterate_records_reference(plan, state, recs)
+    return chaos.launch_records(plan, state, recs)
+
+
+def iterate_full(plan: chaos.ChaosPlan, state: IterState, n_iters: int):
+    """Advance every trajectory n_iters steps with the unpacked path's
+    outputs: (new_state, addr (n_iters, B) int64, pcolor and opacity
+    (n_iters, B) float32), opacity unclipped.  One chaos_iterate launch
+    on a CUDA tensor; the plain version on a CPU tensor."""
+    if state.x.device.type == "cpu":
+        return iterate_full_reference(plan, state, n_iters)
+    return chaos.launch_full(plan, state, n_iters)
+
+
+def iterate_records_reference(plan: chaos.ChaosPlan, state: IterState,
+                              recs: torch.Tensor) -> IterState:
+    """iterate_records by one eager iterate_step a step, on any
+    device: the kernel's plain version."""
+    for k in range(recs.shape[0]):
+        state, addr, pcolor, _op = _plan_step(plan, state)
+        rec = (addr << plan.tot_bits) | quantize_color(plan.cbits, pcolor)
+        if plan.op_bits:
+            # the selected xform id splices between address and color
+            rec = rec | (state.last_xf << plan.cbits)
+        recs[k] = rec
+    return state
+
+
+def iterate_full_reference(plan: chaos.ChaosPlan, state: IterState,
+                           n_iters: int):
+    """iterate_full by one eager iterate_step a step, on any device."""
+    addr, pcolor, opacity = chaos.full_outputs(state, n_iters)
+    for k in range(n_iters):
+        state, addr[k], pcolor[k], opacity[k] = _plan_step(plan, state)
+    return state, addr, pcolor, opacity
+
+
+def _plan_step(plan: chaos.ChaosPlan, state: IterState):
+    return iterate_step(plan.key, plan.cam, plan.fuse, plan.params,
+                        plan.cdf_rows, plan.ppu, state, table=plan.table)
+
+
 def iterate_chunk(key: StructureKey, cam: CameraSpec, params, cdf_rows,
                   state: IterState, ppu, n_iters: int, fuse: int,
                   table=None):
@@ -261,22 +317,19 @@ def iterate_chunk(key: StructureKey, cam: CameraSpec, params, cdf_rows,
     float32): opacity clipped to [0, 1], rgb the palette colour times
     it, density the opacity.  n_iters x B records of 24 bytes each: the
     unpacked path's flush, for frames whose packed records do not fit
-    32 bits."""
-    if table is None:
-        table = build_xform_table(key, params)
-    batch = state.x.shape[0]
-    dev = state.x.device
-    addrs = torch.empty((n_iters, batch), dtype=torch.int64, device=dev)
-    rgbas = torch.empty((n_iters, batch, 4), dtype=torch.float32,
-                        device=dev)
-    for k in range(n_iters):
-        state, addr, pcolor, opacity = iterate_step(
-            key, cam, fuse, params, cdf_rows, ppu, state, table=table)
-        opacity = torch.clamp(opacity, 0.0, 1.0)
-        addrs[k] = addr
-        rgbas[k, :, :3] = _palette_rgb(params.palette, pcolor) \
-            * opacity[:, None]
-        rgbas[k, :, 3] = opacity
+    32 bits.  One chaos_iterate launch on a CUDA tensor."""
+    return _full_records(
+        chaos.plan(key, cam, params, cdf_rows, ppu, fuse, table=table),
+        state, n_iters)
+
+
+def _full_records(plan: chaos.ChaosPlan, state: IterState, n_iters: int):
+    """iterate_chunk on a plan: the steps' addresses, palette
+    coordinates and opacities, then their rgba in one pass."""
+    state, addrs, pcolor, opacity = iterate_full(plan, state, n_iters)
+    opacity = torch.clamp(opacity, 0.0, 1.0)
+    rgbas = torch.cat([_palette_rgb(plan.params.palette, pcolor)
+                       * opacity[..., None], opacity[..., None]], dim=-1)
     return state, addrs, rgbas
 
 
@@ -330,20 +383,14 @@ def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
     if op_bits:
         palette_hi = extend_palette_opacity(palette_hi, params.opacity,
                                             op_bits)
-    table = build_xform_table(key, params)
+    plan = chaos.plan(key, cam, params, cdf_rows, ppu, fuse, cbits,
+                      tot_bits, op_bits)
     batch = state.x.shape[0]
     recs = torch.empty((iters_per_flush, batch), dtype=torch.int64,
                        device=state.x.device)
     plotted = torch.zeros((), dtype=torch.float32, device=state.x.device)
     for _ in range(n_chunks):
-        for k in range(iters_per_flush):
-            state, addr, pcolor, _op = iterate_step(
-                key, cam, fuse, params, cdf_rows, ppu, state, table=table)
-            rec = (addr << tot_bits) | quantize_color(cbits, pcolor)
-            if op_bits:
-                # the selected xform id splices between address and color
-                rec = rec | (state.last_xf << cbits)
-            recs[k] = rec
+        state = iterate_records(plan, state, recs)
         hist = flush(hist, recs, palette_hi, cam.n_bins, tot_bits, weight)
         # per-chunk count is exact in int64; the running total is f32
         plotted = plotted + ((recs >> tot_bits) != cam.junk_bin).sum() \
@@ -356,12 +403,10 @@ def _accumulate_unpacked(key, cam, scatter, params, cdf_rows, state, hist,
                          fuse: int, weight):
     """iterate_accumulate's full-record branch: per chunk,
     iterate_chunk's records times `weight` scattered into hist."""
-    table = build_xform_table(key, params)
+    plan = chaos.plan(key, cam, params, cdf_rows, ppu, fuse)
     plotted = torch.zeros((), dtype=torch.float32, device=state.x.device)
     for _ in range(n_chunks):
-        state, addrs, rgbas = iterate_chunk(
-            key, cam, params, cdf_rows, state, ppu, iters_per_flush, fuse,
-            table=table)
+        state, addrs, rgbas = _full_records(plan, state, iters_per_flush)
         if weight is not None:
             rgbas = rgbas * weight
         hist = scatter(hist, addrs, rgbas)

@@ -6,8 +6,9 @@ Port of `cuburn_tpu/render.py` for one device.  Per frame:
     (motion blur: at the T shutter times, by the packed-knot
     interpolator of ops/interp.py on the device)
   chaos game in chunks, each chunk flushed into the histogram
-    (`iterate_accumulate`; the flush is the CUDA kernel on a GPU;
-    a temporal sample's flushes carry its filter weight)
+    (`iterate_accumulate`; on a GPU a chunk is one launch of the
+    chaos-game kernel and the flush is a CUDA kernel too; a temporal
+    sample's flushes carry its filter weight)
   logscale -> density estimation -> downsample -> colorclip -> u8
   u8 readback                                           [host]
 
@@ -41,6 +42,7 @@ import torch.nn.functional as F
 
 from cuburn_tpu_torch.device import resolve_device
 from cuburn_tpu_torch.genome.specs import Genome
+from cuburn_tpu_torch.ops import chaos
 from cuburn_tpu_torch.ops import de as de_mod
 from cuburn_tpu_torch.ops import histogram as hist_mod
 from cuburn_tpu_torch.ops.camera import CameraSpec
@@ -470,6 +472,8 @@ class Renderer:
     def __init__(self, genome: Genome, profile: RenderProfile,
                  device: torch.device | str | None = None):
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            chaos.load()    # the kernel's build stays out of iterate_s
         self.genome = genome
         self._packed_genome = None      # built at the first blurred frame
         self.profile = profile

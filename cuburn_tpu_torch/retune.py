@@ -19,9 +19,11 @@ between its passes is the race's own noise (`spread`).  A pick
 replaces the built-in default only where its mean leads the default's
 by more than that (`stands_out`); otherwise the record keeps the
 default backend (pallas_win) and leaves the flush-size key out, so the
-Renderer keeps its built-in flush size.  Where the loop is bound by
-host launches, as on an H100, the rows move more between passes than
-the candidates differ, and the record holds the defaults.
+Renderer keeps its built-in flush size.  The gate sees the noise of
+one run only: on an H100 the rows moved up to 16% between passes, and
+a backend pick that stood in one run did not stand in the next three
+(PERF.md).  A record's picks are measurements of that run; compare two
+runs before keeping one.
 
 The record goes where `Renderer` reads it on the same card
 (render._load_tune): the file CUBURN_TUNE_FILE names, or

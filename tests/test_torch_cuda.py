@@ -19,7 +19,13 @@ the split flush; a striped frame's density equal to the whole frame's
 in every bin, its flush kernels launched once a flush in every stripe;
 a tune record for this card steers `auto` and the flush size and the
 repo's TPU record does not; the native output encoder is in use; a
-`--trace-dir` render's trace holds each hand kernel's launches.
+`--trace-dir` render's trace holds each hand kernel's launches.  The
+chaos-game kernel against the eager step loop, its plain version: every
+variation alone with its RNG words exact and (dx, dy) within rtol 1e-4,
+atol 1e-5 in >= 99.9% of points; chunks of the genomes of
+test_torch_chaos.py with the RNG words and the selected xforms exact
+at every step, step 1's records equal in >= 99.9% of lanes; one launch
+a chunk on every render path; no fallback when it cannot be built.
 """
 
 import numpy as np
@@ -28,13 +34,24 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import ctypes  # noqa: E402
+import dataclasses  # noqa: E402
+
+from cuburn_tpu_torch import params as tparams  # noqa: E402
 from cuburn_tpu_torch import render as trender  # noqa: E402
+from cuburn_tpu_torch.genome.spline import Spline  # noqa: E402
+from cuburn_tpu_torch.genome.variations import VARIATION_PARAMS  # noqa: E402
 from cuburn_tpu_torch.kernels import build  # noqa: E402
 from cuburn_tpu_torch.models import (animated_spark, full_feature,  # noqa: E402
                                      sierpinski)
-from cuburn_tpu_torch.ops import flush  # noqa: E402
+from cuburn_tpu_torch.models.gallery import tilted  # noqa: E402
+from cuburn_tpu_torch.ops import camera as tcam  # noqa: E402
+from cuburn_tpu_torch.ops import chaos, flush  # noqa: E402
 from cuburn_tpu_torch.ops import histogram as thist  # noqa: E402
+from cuburn_tpu_torch.ops import iterate as tit  # noqa: E402
+from cuburn_tpu_torch.ops import rng as trng  # noqa: E402
 from cuburn_tpu_torch.ops import tiled_sort  # noqa: E402
+from cuburn_tpu_torch.ops import variations as tvar  # noqa: E402
 from cuburn_tpu_torch.profile import RenderProfile  # noqa: E402
 
 N_BINS = 300 * 200
@@ -581,12 +598,14 @@ def test_render_goes_through_kernel(cuda, backend, name):
     assert r.backend == backend and r.device.type == "cuda"
     flush.LAUNCHES[name] = 0
     tiled_sort.LAUNCHES["bitonic_sort"] = 0
+    chaos.LAUNCHES["chaos_iterate"] = 0
     img, stats = r.render_frame(0.0, seed=1)
     assert flush.LAUNCHES[name] > 0
     # every sorted flush sorts with the kernel, one launch a pass
     assert (tiled_sort.LAUNCHES["bitonic_sort"] > 0) == (backend != "pallas")
     assert img.shape == (128, 128, 4) and img[..., :3].any()
     assert stats.plotted_samples > 0
+    assert chaos.LAUNCHES["chaos_iterate"] > 0
 
 
 def test_auto_backend_is_the_windowed_kernel(cuda):
@@ -871,7 +890,8 @@ def test_native_encoder_in_use(cuda):
 # the __global__ functions behind each launch counter
 TRACE_NAMES = {"win_flush": ("win_flush_kernel",),
                "bitonic_sort": ("first_pass_kernel", "later_pass_kernel",
-                                "global_pass_kernel")}
+                                "global_pass_kernel"),
+               "chaos_iterate": ("chaos_iterate_kernel",)}
 
 
 def test_trace_dir_holds_the_hand_kernels(cuda, tmp_path):
@@ -882,12 +902,14 @@ def test_trace_dir_holds_the_hand_kernels(cuda, tmp_path):
     from cuburn_tpu_torch import main as tmain
     flush.LAUNCHES["win_flush"] = 0
     tiled_sort.LAUNCHES["bitonic_sort"] = 0
+    chaos.LAUNCHES["chaos_iterate"] = 0
     assert tmain.main(["gallery:full_feature", "--width", "256", "--height",
                        "256", "--quality", "20", "-o",
                        str(tmp_path / "t.png"), "--trace-dir",
                        str(tmp_path / "tr")]) == 0
     counts = {"win_flush": flush.LAUNCHES["win_flush"],
-              "bitonic_sort": tiled_sort.LAUNCHES["bitonic_sort"]}
+              "bitonic_sort": tiled_sort.LAUNCHES["bitonic_sort"],
+              "chaos_iterate": chaos.LAUNCHES["chaos_iterate"]}
     with open(tmp_path / "tr" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
@@ -895,3 +917,192 @@ def test_trace_dir_holds_the_hand_kernels(cuda, tmp_path):
         assert counts[name] > 0
         assert sum(any(fn in k for fn in fns) for k in kernels) == \
             counts[name]
+
+
+# -- the chaos game (csrc/chaos_iterate.cu) ----------------------------------
+
+_AFFINE = (1.1, 0.2, 0.3, -0.2, 0.9, 0.15)
+
+
+@pytest.mark.parametrize("name", sorted(tvar.VARIATION_IMPLS))
+def test_chaos_variation_matches_plain_on_the_card(cuda, name):
+    """One variation alone at 2^16 points, default and bumped knobs,
+    weights 0.7, -0.45 and 0: RNG words exact, finite where the plain
+    version is, (dx, dy) within rtol 1e-4, atol 1e-5 in >= 99.9% of the
+    points (the rest sit where a ulp of the libm moves the formula)."""
+    n = 1 << 16
+    rs = np.random.RandomState(11)
+    tx = torch.as_tensor(rs.uniform(-2, 2, n).astype(np.float32),
+                         device=cuda)
+    ty = torch.as_tensor(rs.uniform(-2, 2, n).astype(np.float32),
+                         device=cuda)
+    state = rs.randint(0, 2 ** 32, (n, 4), dtype=np.uint64).astype(np.int64)
+    lib = chaos.load()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    defaults = dict(VARIATION_PARAMS[name])
+    bumped = {a: d * 1.3 + 0.4 for a, d in defaults.items()}
+    aff = torch.tensor(_AFFINE, device=cuda)
+    for params in (defaults, bumped):
+        vals = [params[a] for a, _d in VARIATION_PARAMS[name]] or [0.0]
+        for w in (0.7, -0.45, 0.0):
+            wt = torch.full((n,), w, device=cuda)
+            rng = torch.as_tensor(state, device=cuda)
+            dx, dy = torch.empty_like(tx), torch.empty_like(tx)
+            args = chaos.variation_args(
+                lib, name, tx, ty, wt, torch.tensor(vals, device=cuda),
+                aff, rng, dx, dy)
+            build.launch({"v": 0}, "v", chaos.LIBRARY, "chaos_variation",
+                         (ctypes.c_void_p,), stream, ctypes.addressof(args))
+            plain = trng.RngStream(torch.as_tensor(state, device=cuda))
+            ctx = tvar.make_ctx(tx, ty, tuple(aff[i].expand(n)
+                                              for i in range(6)), plain)
+            px, py = tvar.VARIATION_IMPLS[name](
+                ctx, wt, lambda a: torch.full((n,), params[a], device=cuda))
+            assert torch.equal(rng, plain.state), (name, params, w)
+            for k, p in ((dx, px), (dy, py)):
+                assert torch.equal(torch.isfinite(k), torch.isfinite(p))
+                fin = torch.isfinite(p)
+                close = torch.isclose(k[fin], p[fin], rtol=1e-4, atol=1e-5)
+                assert float(close.double().mean()) >= 0.999, (name, w)
+
+
+def _chaos_opacity():
+    g = full_feature()
+    g.xforms[1].opacity = Spline(0.5)
+    g.xforms[2].opacity = Spline(0.25)
+    return g
+
+
+def _chaos_no_dof():
+    g = tilted()
+    g.cam_dof = Spline(0.0)
+    return g
+
+
+# test_torch_chaos.py's chunk cases with the port's genomes: name ->
+# (genome, camera arguments, rotate degrees, opacity-extended)
+CHAOS_CASES = {
+    "full_feature": (full_feature, {}, 0.0, False),
+    "cam_mode_1": (_chaos_no_dof, {}, 0.0, False),
+    "cam_mode_2": (tilted, {}, 0.0, False),
+    "op_bits": (_chaos_opacity, {}, 0.0, True),
+    "stripe": (full_feature, dict(tile_row0=40, full_acc_height=102,
+                                  tile_acc_height=30), 0.0, False),
+    "rotated": (full_feature, {}, 33.0, False),
+}
+
+
+def _chaos_setup(case, device, batch=1 << 14):
+    genome, cam_extra, rotate, opacity = CHAOS_CASES[case]
+    g = genome()
+    key = g.structure_key()
+    cam = tcam.CameraSpec(64, 48, 2, gutter=3, no_rotation=rotate == 0.0,
+                          **cam_extra)
+    p = tparams.params_from_genome(g.eval_at(0.0), device)
+    p = dataclasses.replace(p, rotate=torch.tensor(rotate, device=device))
+    st = tit.init_state(torch.Generator().manual_seed(3), batch, device)
+    st = dataclasses.replace(st, age=st.age + 40)     # past the fuse
+    op_bits = tit.opacity_bits_for(cam.layout_bins, key.n_xforms)[0] \
+        if opacity else 0
+    cbits, tot_bits = tit.record_bits(key, cam, "pallas_win", op_bits)
+    plan = chaos.plan(key, cam, p, tit.xform_cdf_rows(p),
+                      p.ppu * float(64 / g.size[0]), 20, cbits, tot_bits,
+                      op_bits)
+    return plan, st
+
+
+@pytest.mark.parametrize("case", sorted(CHAOS_CASES))
+def test_chaos_chunk_matches_plain_on_the_card(cuda, case):
+    """8 steps one launch at a time against the eager loop: RNG words
+    and selected xforms exact at every step; from the same state, step
+    1's records in >= 99.9% of lanes and positions within rtol 1e-4,
+    atol 1e-5; one 8-step launch equal to the eight."""
+    plan, st = _chaos_setup(case, cuda)
+    kern, plain, steps = st, st, []
+    for k in range(8):
+        before = chaos.LAUNCHES["chaos_iterate"]
+        rk = torch.empty((1, st.x.shape[0]), dtype=torch.int64, device=cuda)
+        kern = tit.iterate_records(plan, kern, rk)
+        assert chaos.LAUNCHES["chaos_iterate"] == before + 1
+        rp = torch.empty_like(rk)
+        nxt = tit.iterate_records_reference(plan, plain, rp)
+        assert torch.equal(kern.rng, nxt.rng)
+        assert torch.equal(kern.last_xf, nxt.last_xf)
+        if k == 0:
+            assert float((rk == rp).double().mean()) >= 0.999
+            for a, b in ((kern.x, nxt.x), (kern.y, nxt.y)):
+                close = torch.isclose(a, b, rtol=1e-4, atol=1e-5)
+                assert float(close.double().mean()) >= 0.999
+            assert int(((rk >> plan.tot_bits) != plan.cam.junk_bin).sum()) \
+                > st.x.shape[0] // 8
+        steps.append(rk[0])
+        plain = nxt
+    whole = torch.empty((8, st.x.shape[0]), dtype=torch.int64, device=cuda)
+    ws = tit.iterate_records(plan, st, whole)
+    assert torch.equal(whole, torch.stack(steps))
+    for f in ("x", "y", "color", "last_xf", "age", "rng"):
+        assert torch.equal(getattr(ws, f), getattr(kern, f))
+
+
+def test_chaos_unpacked_chunk_matches_plain_on_the_card(cuda):
+    plan, st = _chaos_setup("full_feature", cuda)
+    plan = dataclasses.replace(plan, cbits=0, tot_bits=0, op_bits=0)
+    before = chaos.LAUNCHES["chaos_iterate"]
+    ks, ka, kc, ko = tit.iterate_full(plan, st, 8)
+    assert chaos.LAUNCHES["chaos_iterate"] == before + 1
+    ps, pa, pc, po = tit.iterate_full_reference(plan, st, 8)
+    assert torch.equal(ks.rng, ps.rng) and torch.equal(ks.last_xf,
+                                                       ps.last_xf)
+    assert torch.equal(ko, po)
+    assert float((ka[0] == pa[0]).double().mean()) >= 0.999
+    assert float(torch.isclose(kc[0], pc[0], rtol=1e-4, atol=1e-5)
+                 .double().mean()) >= 0.999
+
+
+def _chunks(r, stats):
+    per_chunk = r._batch_for(r.profile.total_iters) \
+        * r.profile.iters_per_chunk
+    return stats.total_iters // per_chunk
+
+
+@pytest.mark.parametrize("path", ["still", "blurred", "unpacked",
+                                  "striped"])
+def test_every_render_path_launches_the_chaos_game(cuda, monkeypatch, path):
+    """One chaos_iterate launch a chunk: a still, a motion-blurred frame
+    (T = 3), an unpacked frame and a striped one."""
+    if path == "unpacked":
+        monkeypatch.setattr(trender, "color_bits_for", lambda n_bins: 0)
+    blur = dict(temporal_samples=3, fps=4.0) if path == "blurred" else {}
+    prof = RenderProfile(width=128, height=128, quality=20, batch=8192,
+                         **blur)
+    g = _spark() if path == "blurred" else full_feature()
+    r = trender.Renderer(g, prof)
+    chaos.LAUNCHES["chaos_iterate"] = 0
+    if path == "striped":
+        # stats count every stripe's iterations: each replays the chunks
+        _h, stats = r.accumulate_striped(0.0, seed=1, n_stripes=2)
+        want = _chunks(r, stats)
+    else:
+        _h, stats = r.accumulate(0.5, seed=1)
+        want = _chunks(r, stats)
+    assert chaos.LAUNCHES["chaos_iterate"] == want > 0
+    assert stats.plotted_samples > 0
+
+
+def test_chaos_raises_when_build_fails(cuda, monkeypatch):
+    """No fallback: a chaos kernel that cannot be built makes the CUDA
+    wrappers raise instead of running the eager loop."""
+    plan, st = _chaos_setup("full_feature", cuda, batch=1024)
+
+    def broken(name):
+        raise RuntimeError(f"nvcc failed building {name}.cu")
+    monkeypatch.setattr(build, "load", broken)
+    before = chaos.LAUNCHES["chaos_iterate"]
+    rec = torch.empty((2, 1024), dtype=torch.int64, device=cuda)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        tit.iterate_records(plan, st, rec)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        tit.iterate_full(plan, st, 2)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        trender.Renderer(full_feature(), RenderProfile(width=32, height=32))
+    assert chaos.LAUNCHES["chaos_iterate"] == before
