@@ -164,13 +164,36 @@ CUDA toolkit.  Phases, each printed on its own line:
               through the kernel: iterate_s, samples/s, launches, mass
               == plotted; once more under torch.profiler: the device's
               busy share and its time by kernel.
+ 14. probe    the bf16 probe (probes/bf16probe.py, bf16_probe.cu), on no
+              render path.  Its entry point as a user runs it, the
+              launches counted: the three staging variants (3 launches)
+              and the rgb16 skeleton (1), every line ok, the skeleton's
+              within the TPU probe's own tolerances.  (a) At the probe's
+              size, (3, 1024, 128): each variant's kernel bit-equal to its
+              plain version and to its input; the skeleton on the probe's
+              schedule and on two shuffled ones (blocks in another order,
+              1-4 visits a block, each block's visits one run) bit-equal
+              to its plain version; a schedule that revisits a block
+              refused with ValueError, nothing launched; one launch a
+              call.  (b) At the split histogram of the main path (1080p
+              ss2's bins with the junk bin in rows of 128, padded to
+              whole 256-row blocks: 67,584 rows): each variant bit-equal
+              20 times (a missing proxy fence shows as an intermittent
+              mismatch), the skeleton at 3 visits a block and on a
+              shuffled schedule bit-equal; medians of 10 calls of the
+              kernel, the plain version and one PyTorch call (the
+              identity, out.copy_(x), for the roundtrip; none for the
+              skeleton): ms, device ms and the bound from the bytes.
 
-Every render phase counts the chaos game's launches, one a chunk.
+Every render phase counts the chaos game's launches, one a chunk, and
+no launch of the probe's kernels.
 Every phase but 12a runs with CUBURN_TUNE_FILE pointing at a file that
 does not exist, so no tune record moves the launch counts.  Then one
-JSON line describing each kernel, the nvidia-smi line, and last
-{"ok": true, "device": {...}}.  Any failed check exits non-zero before
-those lines.  Without CUDA it exits non-zero at once.
+JSON line describing each kernel (the probe's with the launches of its
+own entry point and 0 on every render path, its times from phase 14b),
+the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any
+failed check exits non-zero before those lines.  Without CUDA it exits
+non-zero at once.
 """
 
 from __future__ import annotations
@@ -200,7 +223,11 @@ KERNELS = {
                         "cuburn_tpu/ops/pallas_hist.py:305"),
     "bitonic_sort": ("bitonic_sort", "cuburn_tpu/ops/pallas_sort.py:40"),
     "chaos_iterate": ("chaos_iterate", "bench/fusedprobe.py:61"),
+    "bf16_roundtrip": ("bf16_probe", "bench/bf16probe.py:41, :55, :73"),
+    "rgb16_skeleton": ("bf16_probe", "bench/bf16probe.py:132"),
 }
+# the probe's kernels (phase 14): launched by no render path
+PROBE_KERNELS = ("bf16_roundtrip", "rgb16_skeleton")
 # the backend whose render drives each flush kernel
 RENDER_BACKENDS = {"packed_flush": "pallas", "merged_flush": "pallas_merged",
                    "win_flush_rgb16": "pallas_rgb16"}
@@ -240,6 +267,8 @@ TRACE_KERNELS = {
     "bitonic_sort": ("first_pass_kernel", "later_pass_kernel",
                      "global_pass_kernel"),
     "chaos_iterate": ("chaos_iterate_kernel",),
+    "bf16_roundtrip": ("bf16_roundtrip_kernel",),
+    "rgb16_skeleton": ("rgb16_skeleton_kernel",),
 }
 # CUBURN_TUNE_FILE for every phase but the tuner's: a path that does not
 # exist, so no tune record in the working directory moves the flush
@@ -673,6 +702,9 @@ def phase_render(torch, flush, tiled_sort, tit, write_image, r, quality):
         check(count > 0, f"the 1080p render launched no {name}")
     check(launches["chaos_iterate"] == launches["win_flush"],
           f"{launches}: the chaos game not once a chunk")
+    for name in PROBE_KERNELS:
+        check(now[name] == 0, f"the 1080p render launched {name}")
+        launches[name] = now[name]
     check(stats.plotted_samples > 0, "no samples plotted")
     check(img.shape == (1080, 1920, 4), f"image shape {img.shape}")
     check(bool(img[..., :3].any()), "the image is black")
@@ -850,7 +882,10 @@ def phase_render_backend(torch, flush, tiled_sort, tit, Renderer, genome,
     img = r.finalize_frame(hist, 0.0, stats)
     launches = flush.LAUNCHES[name]
     chaos_launches = launches_now(flush, tiled_sort)["chaos_iterate"]
+    probe = probe_launches(flush, tiled_sort)
     tit.PACKED_FLUSHES[backend] = wrapper
+    check(probe == dict.fromkeys(PROBE_KERNELS, 0),
+          f"the {backend} render launched {probe}")
     check(launches == flushes * LAUNCHES_PER_FLUSH[name] > 0,
           f"the {backend} render launched {name} {launches} times in "
           f"{flushes} flushes, expected {LAUNCHES_PER_FLUSH[name]} a flush")
@@ -906,7 +941,9 @@ def spark(animated_spark, ftype="gaussian"):
 
 def reset_launches(flush, tiled_sort):
     from cuburn_tpu_torch.ops import chaos
-    for counts in (flush.LAUNCHES, tiled_sort.LAUNCHES, chaos.LAUNCHES):
+    from cuburn_tpu_torch.probes import bf16probe
+    for counts in (flush.LAUNCHES, tiled_sort.LAUNCHES, chaos.LAUNCHES,
+                   bf16probe.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -935,10 +972,12 @@ def check_frame_launches(flush, tiled_sort, r, stats, frames, what):
         tiled_sort.bitonic_schedule(1 << (per_chunk - 1).bit_length()))
     got = {name: flush.LAUNCHES[name],
            "bitonic_sort": tiled_sort.LAUNCHES["bitonic_sort"],
-           "chaos_iterate": launches_now(flush, tiled_sort)["chaos_iterate"]}
+           "chaos_iterate": launches_now(flush, tiled_sort)["chaos_iterate"],
+           **probe_launches(flush, tiled_sort)}
     want = {name: frames * flushes * LAUNCHES_PER_FLUSH[name],
             "bitonic_sort": frames * flushes * passes,
-            "chaos_iterate": frames * flushes}
+            "chaos_iterate": frames * flushes,
+            **dict.fromkeys(PROBE_KERNELS, 0)}
     check(got == want and got[name] > 0,
           f"{what}: launches {got}, expected {want}")
     if not passes:
@@ -1121,7 +1160,8 @@ def phase_animation(torch, flush, tiled_sort, tit, write_image, Renderer,
               launches=got, serial_s=a_s, **fields, mass=mass,
               iterate_s=[s.iterate_s for _, s in a])
     for name, n in launches.items():
-        check(n > 0, f"the animation launched no {name}")
+        check(n == 0 if name in PROBE_KERNELS else n > 0,
+              f"the animation launched {name} {n} times")
     return launches, serial[1][0]
 
 
@@ -1154,7 +1194,15 @@ def check_striped(torch, whole, sw, striped, ss, what, bf16_flushes=0):
 
 def launches_now(flush, tiled_sort):
     from cuburn_tpu_torch.ops import chaos
-    return {**flush.LAUNCHES, **tiled_sort.LAUNCHES, **chaos.LAUNCHES}
+    from cuburn_tpu_torch.probes import bf16probe
+    return {**flush.LAUNCHES, **tiled_sort.LAUNCHES, **chaos.LAUNCHES,
+            **bf16probe.LAUNCHES}
+
+
+def probe_launches(flush, tiled_sort):
+    """The probe kernels' launches since the last reset."""
+    now = launches_now(flush, tiled_sort)
+    return {name: now[name] for name in PROBE_KERNELS}
 
 
 def partition_launches(flush, tiled_sort, r, stats, n_flushes, what):
@@ -1171,9 +1219,11 @@ def partition_launches(flush, tiled_sort, r, stats, n_flushes, what):
         tiled_sort.bitonic_schedule(1 << (per_chunk - 1).bit_length()))
     got = {name: flush.LAUNCHES[name],
            "bitonic_sort": tiled_sort.LAUNCHES["bitonic_sort"],
-           "chaos_iterate": launches_now(flush, tiled_sort)["chaos_iterate"]}
+           "chaos_iterate": launches_now(flush, tiled_sort)["chaos_iterate"],
+           **probe_launches(flush, tiled_sort)}
     want = {name: flushes * LAUNCHES_PER_FLUSH[name],
-            "bitonic_sort": flushes * passes, "chaos_iterate": flushes}
+            "bitonic_sort": flushes * passes, "chaos_iterate": flushes,
+            **dict.fromkeys(PROBE_KERNELS, 0)}
     check(got == want and got[name] > 0,
           f"{what}: launches {got}, expected {want}")
     if not passes:
@@ -1825,9 +1875,11 @@ def phase_sharded(torch, write_image, Renderer, animated_spark,
                   ranks=len(devices), **r0["times"])
     phase_farm(torch, write_image, Renderer, animated_spark, get_profile, q)
     a = results["a"][0]["launches_sharded"]
+    # rank_launches keeps nonzero counts, and 11a holds pallas_win's to
+    # exactly the flush, the sort and the chaos game
     return {FLUSH_KERNEL[b]: n[FLUSH_KERNEL[b]] for b, n in a.items()} | {
-        name: a["pallas_win"][name] for name in ("bitonic_sort",
-                                                 "chaos_iterate")}
+        name: a["pallas_win"].get(name, 0) for name in (
+            "bitonic_sort", "chaos_iterate", *PROBE_KERNELS)}
 
 
 # -- phase 12: the tools (retune.py, --trace-dir, the native encoder) ------
@@ -2272,6 +2324,209 @@ def phase_chaos(torch, flush, tiled_sort, Renderer, full_feature,
     return times, err
 
 
+# -- phase 14: the bf16 probe (probes/bf16probe.py, bf16_probe.cu) --------
+
+PROBE_REPEATS = 20
+
+
+def same_bits(torch, a, b):
+    """a and b hold the same bits (bf16 as int16, f32 as int32)."""
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        torch.equal(a.view(view), b.view(view))
+
+
+def contiguous_schedule(np, seed, n_blocks):
+    """(perm, rbg) int32: every block in a shuffled order, 1-4 visits a
+    block in one run, rbg's entries shuffled and perm undoing that."""
+    rng = np.random.RandomState(seed)
+    steps = np.repeat(rng.permutation(n_blocks),
+                      rng.randint(1, 5, n_blocks)).astype(np.int32)
+    perm = rng.permutation(steps.size).astype(np.int32)
+    rbg = np.empty_like(steps)
+    rbg[perm] = steps
+    return perm, rbg
+
+
+def probe_schedules(np, bp, n_blocks, shuffled):
+    """The probe's schedule (3 visits a block, in order) and `shuffled`
+    contiguous ones."""
+    v = bp.SKELETON_VISITS
+    return {"probe": (np.arange(n_blocks * v, dtype=np.int32),
+                      np.repeat(np.arange(n_blocks, dtype=np.int32), v)),
+            **{f"shuffled_{s}": contiguous_schedule(np, s, n_blocks)
+               for s in range(shuffled)}}
+
+
+def skeleton_inputs(torch, np, rows, seed):
+    rng = np.random.RandomState(seed)
+    dev = torch.device("cuda")
+    return (torch.tensor(rng.rand(1, rows, 128).astype(np.float32),
+                         device=dev),
+            torch.tensor(rng.rand(3, rows, 128).astype(np.float32))
+            .to(torch.bfloat16).to(dev),
+            torch.tensor(rng.rand(4, 256, 128).astype(np.float32),
+                         device=dev))
+
+
+def check_skeleton(torch, bp, dens0, rgb0, add, perm, rbg, what, reps=1):
+    """The skeleton's kernel bit-equal to its plain version from the same
+    state, `reps` times, one launch a call; returns the max abs error
+    between them."""
+    dr, cr = dens0.clone(), rgb0.clone()
+    bp.skeleton_reference(dr, cr, add, perm, rbg)
+    for _ in range(reps):
+        d, c = dens0.clone(), rgb0.clone()
+        before = bp.LAUNCHES["rgb16_skeleton"]
+        bp.skeleton(d, c, add, perm, rbg)
+        torch.cuda.synchronize()
+        check(bp.LAUNCHES["rgb16_skeleton"] == before + 1,
+              f"{what}: not one launch")
+        check(same_bits(torch, d, dr) and same_bits(torch, c, cr),
+              f"{what}: the skeleton kernel differs from its plain version "
+              f"(density {float((d - dr).abs().max())}, rgb "
+              f"{float((c.float() - cr.float()).abs().max())})")
+    return max(float((d - dr).abs().max()),
+               float((c.float() - cr.float()).abs().max()))
+
+
+def check_roundtrip(torch, bp, x, variant, what, reps=1):
+    """The roundtrip kernel bit-equal to its plain version and to x,
+    `reps` times, one launch a call; returns its max abs error."""
+    want = bp.roundtrip_reference(x, variant)
+    check(same_bits(torch, want, x), f"{what}: the plain version is not "
+          "the identity")
+    for _ in range(reps):
+        before = bp.LAUNCHES["bf16_roundtrip"]
+        got = bp.roundtrip(x, variant)
+        torch.cuda.synchronize()
+        check(bp.LAUNCHES["bf16_roundtrip"] == before + 1,
+              f"{what}: not one launch")
+        check(same_bits(torch, got, want),
+              f"{what}: the roundtrip kernel differs from its plain version")
+    return float((got.float() - x.float()).abs().max())
+
+
+def roundtrip_times(torch, bp, xq, variant):
+    """Medians of the roundtrip kernel, its plain version and the
+    identity as one PyTorch call (out.copy_(x)), with the bound."""
+    lib_out = torch.empty_like(xq)
+    t = medians(torch, {
+        "ms": lambda: bp.roundtrip(xq, variant),
+        "plain_ms": lambda: bp.roundtrip_reference(xq, variant),
+        "library_ms": lambda: lib_out.copy_(xq)})
+    nbytes = 2 * xq.numel() * xq.element_size()
+    # the bf16 variants convert every element twice
+    b_ms, b_by = bound(nbytes, 0 if variant == "f32" else 2 * xq.numel())
+    return {"bound_bytes": nbytes, **t, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def skeleton_times(torch, bp, dens0, rgb0, add, perm, rbg):
+    """Medians of the skeleton kernel and its plain version, in place on
+    copies of the state, with the bound; no one PyTorch call computes
+    it."""
+    d, c = dens0.clone(), rgb0.clone()
+    t = medians(torch, {
+        "ms": lambda: bp.skeleton(d, c, add, perm, rbg),
+        "plain_ms": lambda: bp.skeleton_reference(d, c, add, perm, rbg)})
+    check(bool(torch.isfinite(d).all()), "the skeleton: non-finite density")
+    # density and rgb read and written once, add and the schedule read
+    # once; one float add an element a visit, a conversion each way
+    nbytes = 2 * (d.numel() * 4 + c.numel() * 2) + add.numel() * 4 \
+        + 2 * perm.size * 4
+    b_ms, b_by = bound(nbytes, perm.size * add.numel() + 2 * c.numel())
+    return {"visits": int(perm.size), "bound_bytes": nbytes, **t,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def phase_probe(torch, n_bins, kind):
+    """The bf16 probe (phase 14): its entry point with its launches
+    counted, then (a) the probe's size and (b) the main path's split
+    histogram.  Returns (launches, times, errs) by kernel."""
+    import numpy as np
+
+    from cuburn_tpu_torch.probes import bf16probe as bp
+    dev = torch.device("cuda")
+
+    # the probe's main path, as `python -m ...bf16probe [--skeleton]`
+    for k in bp.LAUNCHES:
+        bp.LAUNCHES[k] = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rcs = [bp.main([]), bp.main(["--skeleton"])]
+    launches = dict(bp.LAUNCHES)
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    check(rcs == [0, 0] and all(ln["device"] == kind for ln in lines)
+          and all(ln["ok"] for ln in lines[1:]) and len(lines) == 5,
+          f"the probe returned {rcs}: {lines}")
+    check(launches == {"bf16_roundtrip": 3, "rgb16_skeleton": 1},
+          f"the probe launched {launches}")
+    phase(14, "probe", part="main", lines=lines, launches=launches)
+
+    # (a) the probe's size
+    rows = bp.NB * bp.BR
+    x = np.random.RandomState(0).rand(3, rows, 128).astype(np.float32)
+    a_err, a_times = {}, {}
+    for v, (_code, dtype, _name) in bp.VARIANTS.items():
+        xq = torch.from_numpy(x).to(dtype).to(dev)
+        a_err[v] = check_roundtrip(torch, bp, xq, v, f"14a {v}")
+        check(a_err[v] == 0.0, f"14a {v}: max_err {a_err[v]}")
+        a_times[v] = roundtrip_times(torch, bp, xq, v)
+    dens0, rgb0, add = skeleton_inputs(torch, np, rows, 1)
+    scheds = probe_schedules(np, bp, bp.NB, 2)
+    for name, (perm, rbg) in scheds.items():
+        check_skeleton(torch, bp, dens0, rgb0, add, perm, rbg,
+                       f"14a skeleton {name}")
+    a_times["skeleton"] = skeleton_times(torch, bp, dens0, rgb0, add,
+                                         *scheds["probe"])
+    before = dict(bp.LAUNCHES)
+    d = dens0.clone()
+    try:
+        bp.skeleton(d, rgb0.clone(), add, np.arange(8, dtype=np.int32),
+                    np.array([0, 0, 1, 0, 2, 3, 3, 1], np.int32))
+        check(False, "14a: a revisiting schedule was not refused")
+    except ValueError as e:
+        refused = str(e)
+    torch.cuda.synchronize()
+    check(bp.LAUNCHES == before and torch.equal(d, dens0),
+          "14a: the refused schedule launched or wrote")
+    phase(14, "probe", part="a_probe_size", rows=rows, max_err=a_err,
+          skeleton_schedules={k: rbg[perm].tolist()
+                              for k, (perm, rbg) in scheds.items()},
+          revisit_refused=refused, times=a_times)
+
+    # (b) the main path's split histogram: (n_bins + 1) bins in rows of
+    # 128, padded to whole blocks
+    rows = -(-(-(-(n_bins + 1) // 128)) // bp.BR) * bp.BR
+    gen = torch.Generator().manual_seed(14)
+    times, b_err = {}, {}
+    for v, (_code, dtype, _name) in bp.VARIANTS.items():
+        xq = torch.rand((3, rows, 128), generator=gen).to(dtype).to(dev)
+        b_err[v] = check_roundtrip(torch, bp, xq, v, f"14b {v}",
+                                   reps=PROBE_REPEATS)
+        check(b_err[v] == 0.0, f"14b {v}: max_err {b_err[v]}")
+        times[v] = roundtrip_times(torch, bp, xq, v)
+        del xq
+    dens0, rgb0, add = skeleton_inputs(torch, np, rows, 2)
+    n_blocks = rows // bp.BR
+    scheds = probe_schedules(np, bp, n_blocks, 1)
+    skel_err = max(check_skeleton(torch, bp, dens0, rgb0, add, perm, rbg,
+                                  f"14b skeleton {name}", reps=3)
+                   for name, (perm, rbg) in scheds.items())
+    times["skeleton"] = skeleton_times(torch, bp, dens0, rgb0, add,
+                                       *scheds["probe"])
+    phase(14, "probe", part="b_split_hist", rows=rows, bins=n_bins + 1,
+          blocks=n_blocks, repeats=PROBE_REPEATS, max_err=b_err,
+          shuffled_visits=int(scheds["shuffled_0"][0].size), times=times)
+    del dens0, rgb0, add
+    torch.cuda.empty_cache()
+    return (launches,
+            {"bf16_roundtrip": times["multi"],
+             "rgb16_skeleton": times["skeleton"]},
+            {"bf16_roundtrip": max(b_err.values()),
+             "rgb16_skeleton": skel_err})
+
+
 def build_all(build):
     """Every kernel library, one nvcc each, all started together:
     {library: (path, build seconds)}."""
@@ -2392,6 +2647,9 @@ def main(argv=None) -> int:
     times["chaos_iterate"], errs["chaos_iterate"] = phase_chaos(
         torch, flush, tiled_sort, Renderer, full_feature, get_profile,
         args.quality)
+    for got, of_probe in zip((launches, times, errs),
+                             phase_probe(torch, n_bins, kind)):
+        got.update(of_probe)
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu",

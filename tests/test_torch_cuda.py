@@ -26,6 +26,9 @@ atol 1e-5 in >= 99.9% of points; chunks of the genomes of
 test_torch_chaos.py with the RNG words and the selected xforms exact
 at every step, step 1's records equal in >= 99.9% of lanes; one launch
 a chunk on every render path; no fallback when it cannot be built.
+The bf16 probe's kernels (csrc/bf16_probe.cu) bit-equal to their plain
+versions, one launch a call, repeated so that a missing proxy fence
+shows; a schedule that revisits a block refused before any launch.
 """
 
 import numpy as np
@@ -36,6 +39,7 @@ torch.set_num_threads(1)
 
 import ctypes  # noqa: E402
 import dataclasses  # noqa: E402
+import json  # noqa: E402
 
 from cuburn_tpu_torch import params as tparams  # noqa: E402
 from cuburn_tpu_torch import render as trender  # noqa: E402
@@ -52,6 +56,7 @@ from cuburn_tpu_torch.ops import iterate as tit  # noqa: E402
 from cuburn_tpu_torch.ops import rng as trng  # noqa: E402
 from cuburn_tpu_torch.ops import tiled_sort  # noqa: E402
 from cuburn_tpu_torch.ops import variations as tvar  # noqa: E402
+from cuburn_tpu_torch.probes import bf16probe  # noqa: E402
 from cuburn_tpu_torch.profile import RenderProfile  # noqa: E402
 
 N_BINS = 300 * 200
@@ -1106,3 +1111,155 @@ def test_chaos_raises_when_build_fails(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         trender.Renderer(full_feature(), RenderProfile(width=32, height=32))
     assert chaos.LAUNCHES["chaos_iterate"] == before
+
+
+# -- the bf16 probe (csrc/bf16_probe.cu) ------------------------------------
+
+def _same_bits(a, b):
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.parametrize("rows", [bf16probe.NB * bf16probe.BR, 320, 1000])
+@pytest.mark.parametrize("variant", sorted(bf16probe.VARIANTS))
+def test_bf16_roundtrip_kernel_matches_plain_version(cuda, variant, rows):
+    """The probe's size, a multiple of the kernel's 64-row tile that is
+    not one of BR (320) and a ragged last tile (1000): bit-equal to the
+    plain version and to the input, 10 times, one launch a call."""
+    dtype = bf16probe.VARIANTS[variant][1]
+    gen = torch.Generator().manual_seed(rows)
+    x = torch.rand((3, rows, 128), generator=gen).to(dtype).to(cuda)
+    want = bf16probe.roundtrip_reference(x, variant)
+    assert _same_bits(want, x)
+    for _ in range(10):
+        before = bf16probe.LAUNCHES["bf16_roundtrip"]
+        got = bf16probe.roundtrip(x, variant)
+        torch.cuda.synchronize()
+        assert bf16probe.LAUNCHES["bf16_roundtrip"] == before + 1
+        assert _same_bits(got, want)
+
+
+def _probe_schedule(seed, n_blocks):
+    """(perm, rbg): the blocks in a shuffled order, some skipped, 1-4
+    visits a block in one run; rbg shuffled and perm undoing it."""
+    rng = np.random.RandomState(seed)
+    order = rng.permutation(n_blocks)[:n_blocks - rng.randint(2)]
+    steps = np.repeat(order, rng.randint(1, 5, order.size)).astype(np.int32)
+    perm = rng.permutation(steps.size).astype(np.int32)
+    rbg = np.empty_like(steps)
+    rbg[perm] = steps
+    return perm, rbg
+
+
+def _skeleton_state(seed, rows, device):
+    rng = np.random.RandomState(seed)
+    return (torch.tensor(rng.rand(1, rows, 128).astype(np.float32),
+                         device=device),
+            torch.tensor(rng.rand(3, rows, 128).astype(np.float32))
+            .to(torch.bfloat16).to(device),
+            torch.tensor(rng.rand(4, bf16probe.BR, 128).astype(np.float32),
+                         device=device))
+
+
+@pytest.mark.parametrize("schedule", ["probe", "shuffled_0", "shuffled_1",
+                                      "shuffled_2", "one_block_9_visits"])
+@pytest.mark.parametrize("n_blocks", [bf16probe.NB, 9])
+def test_rgb16_skeleton_kernel_matches_plain_version(cuda, schedule,
+                                                     n_blocks):
+    """Bit-equal to the plain version from the same state, 5 times, one
+    launch a call; blocks off the schedule keep their bits."""
+    BR = bf16probe.BR
+    if schedule == "probe":
+        perm = np.arange(3 * n_blocks, dtype=np.int32)
+        rbg = np.repeat(np.arange(n_blocks, dtype=np.int32), 3)
+    elif schedule == "one_block_9_visits":
+        perm = np.arange(9, dtype=np.int32)
+        rbg = np.full(9, n_blocks - 1, np.int32)
+    else:
+        perm, rbg = _probe_schedule(int(schedule[-1]), n_blocks)
+    dens0, rgb0, add = _skeleton_state(3, n_blocks * BR, cuda)
+    dr, cr = dens0.clone(), rgb0.clone()
+    bf16probe.skeleton_reference(dr, cr, add, perm, rbg)
+    for _ in range(5):
+        d, c = dens0.clone(), rgb0.clone()
+        before = bf16probe.LAUNCHES["rgb16_skeleton"]
+        got = bf16probe.skeleton(d, c, add, perm, rbg)
+        torch.cuda.synchronize()
+        assert got[0] is d and got[1] is c
+        assert bf16probe.LAUNCHES["rgb16_skeleton"] == before + 1
+        assert _same_bits(d, dr) and _same_bits(c, cr)
+    for b in set(range(n_blocks)) - set(rbg[perm].tolist()):
+        rows = slice(b * BR, (b + 1) * BR)
+        assert _same_bits(d[:, rows], dens0[:, rows])
+        assert _same_bits(c[:, rows], rgb0[:, rows])
+
+
+@pytest.mark.parametrize("rbg", [[0, 0, 1, 0, 2, 3, 3, 1], [0, 1, 0]])
+def test_rgb16_skeleton_refuses_a_revisit_on_the_card(cuda, rbg):
+    """The schedule is checked on the host before any upload or launch."""
+    dens, rgb, add = _skeleton_state(4, bf16probe.NB * bf16probe.BR, cuda)
+    d0 = dens.clone()
+    before = dict(bf16probe.LAUNCHES)
+    with pytest.raises(ValueError, match="one contiguous run"):
+        bf16probe.skeleton(dens, rgb, add, np.arange(len(rbg), dtype=np.int32),
+                           np.asarray(rbg, np.int32))
+    torch.cuda.synchronize()
+    assert bf16probe.LAUNCHES == before and torch.equal(dens, d0)
+
+
+def test_bf16_probe_never_takes_the_plain_version(cuda, monkeypatch):
+    """CUDA tensors launch the kernels: the plain versions, patched to
+    raise, are never reached."""
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    monkeypatch.setattr(bf16probe, "roundtrip_reference", plain)
+    monkeypatch.setattr(bf16probe, "skeleton_reference", plain)
+    x = torch.rand((3, 256, 128), device=cuda).to(torch.bfloat16)
+    assert _same_bits(bf16probe.roundtrip(x, "multi"), x)
+    dens, rgb, add = _skeleton_state(5, bf16probe.BR, cuda)
+    bf16probe.skeleton(dens, rgb, add, np.zeros(1, np.int32),
+                       np.zeros(1, np.int32))
+    torch.cuda.synchronize()
+
+
+def test_bf16_probe_refuses_misaligned_tensors(cuda):
+    """Bulk copies need 16-byte aligned addresses."""
+    base = torch.zeros(3 * 256 * 128 + 1, dtype=torch.bfloat16, device=cuda)
+    x = base[1:].view(3, 256, 128)
+    before = dict(bf16probe.LAUNCHES)
+    with pytest.raises(ValueError, match="aligned"):
+        bf16probe.roundtrip(x, "multi")
+    assert bf16probe.LAUNCHES == before
+
+
+def test_bf16_probe_raises_when_build_fails(cuda, monkeypatch):
+    """No fallback: a probe library that cannot be built makes the
+    wrappers raise."""
+    def broken(name):
+        raise RuntimeError(f"nvcc failed building {name}.cu")
+    monkeypatch.setattr(build, "load", broken)
+    before = dict(bf16probe.LAUNCHES)
+    x = torch.rand((3, 256, 128), device=cuda).to(torch.bfloat16)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        bf16probe.roundtrip(x, "per_plane")
+    dens, rgb, add = _skeleton_state(6, bf16probe.BR, cuda)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        bf16probe.skeleton(dens, rgb, add, np.zeros(2, np.int32),
+                           np.zeros(1, np.int32))
+    assert bf16probe.LAUNCHES == before
+
+
+def test_bf16_probe_main_on_the_card(cuda, capsys):
+    """The entry point: 3 launches for the staging variants, 1 for the
+    skeleton, every line ok and named by the card."""
+    for k in bf16probe.LAUNCHES:
+        bf16probe.LAUNCHES[k] = 0
+    assert bf16probe.main([]) == 0
+    assert bf16probe.main(["--skeleton"]) == 0
+    assert bf16probe.LAUNCHES == {"bf16_roundtrip": 3, "rgb16_skeleton": 1}
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert len(lines) == 5
+    for ln in lines[1:]:
+        assert ln["ok"] and ln["device_ms"] > 0
+        assert ln["device"] == torch.cuda.get_device_name(0)

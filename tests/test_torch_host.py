@@ -97,7 +97,8 @@ def test_every_port_module_imports_with_jax_blocked():
     assert {"cuburn_tpu_torch.parallel", "cuburn_tpu_torch.parallel.launch",
             "cuburn_tpu_torch.parallel.shard",
             "cuburn_tpu_torch.parallel.farm", "cuburn_tpu_torch.retune",
-            "cuburn_tpu_torch.native"} <= set(mods)
+            "cuburn_tpu_torch.native",
+            "cuburn_tpu_torch.probes.bf16probe"} <= set(mods)
     script = (
         "import importlib, sys\n"
         "sys.modules['cuburn_tpu'] = sys.modules['jax'] = None\n"
