@@ -8,9 +8,12 @@ CUDA toolkit.  Phases, each printed on its own line:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    compile every csrc/*.cu kernel with nvcc (sm_90a), one
-              nvcc process per source, all started together; the
-              seconds of each, and the registers and spills ptxas
-              reports for chaos_iterate.cu
+              nvcc process per library, all started together: each
+              source, and chaos_iterate.cu once for the structure key
+              of each genome the script renders (CHAOS_GENOMES, its
+              -D definitions from ops/chaos.key_defines); the seconds
+              of each, and the registers and spills ptxas reports for
+              each chaos library
   3. kernel   the windowed-flush kernel (win_flush.cu) against its plain
               PyTorch version at the main path's shapes (2^22 records
               into the 8.63 M-bin 1080p-ss2 histogram): density
@@ -156,7 +159,9 @@ CUDA toolkit.  Phases, each printed on its own line:
               equal in >= 99.9% of lanes and positions within rtol
               1e-4 in >= 99.9%, the records' agreement at every step;
               the chunk's ms and device ms, the plain version's, the
-              bound.  (b) The quality-Q still through the kernel and
+              bound and its share; the full_feature key's library, which
+              the Renderer loaded, with ptxas's registers, stack frame
+              and spills.  (b) The quality-Q still through the kernel and
               through the eager loop in turns (kernel, eager, eager,
               kernel; seeds 1, 1, 2, 2): iterate_s of each, one launch
               a chunk and none through the eager loop, TV distance under
@@ -183,10 +188,14 @@ CUDA toolkit.  Phases, each printed on its own line:
               shuffled schedule bit-equal; medians of 10 calls of the
               kernel, the plain version and one PyTorch call (the
               identity, out.copy_(x), for the roundtrip; none for the
-              skeleton): ms, device ms and the bound from the bytes.
+              skeleton), called in turns: ms, device ms and the bound
+              from the bytes; for each roundtrip variant its persistent
+              grid, its share of the bound and out.copy_'s, and its
+              device ms over out.copy_'s.
 
 Every render phase counts the chaos game's launches, one a chunk, and
-no launch of the probe's kernels.
+no launch of the probe's kernels; no phase loads the generic chaos
+library, which has no chaos game.
 Every phase but 12a runs with CUBURN_TUNE_FILE pointing at a file that
 does not exist, so no tune record moves the launch counts.  Then one
 JSON line describing each kernel (the probe's with the launches of its
@@ -205,6 +214,7 @@ import io
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -226,6 +236,9 @@ KERNELS = {
     "bf16_roundtrip": ("bf16_probe", "bench/bf16probe.py:41, :55, :73"),
     "rgb16_skeleton": ("bf16_probe", "bench/bf16probe.py:132"),
 }
+# the genomes the script renders: phase 2 builds the chaos game's
+# library for the structure key of each with the other libraries
+CHAOS_GENOMES = ("full_feature", "sierpinski", "animated_spark")
 # the probe's kernels (phase 14): launched by no render path
 PROBE_KERNELS = ("bf16_roundtrip", "rgb16_skeleton")
 # the backend whose render drives each flush kernel
@@ -2208,10 +2221,13 @@ def phase_chaos(torch, flush, tiled_sort, Renderer, full_feature,
     (phase 13).  Returns its times, bound and position error."""
     from cuburn_tpu_torch.ops import chaos
     from cuburn_tpu_torch.ops import iterate as it
+    from cuburn_tpu_torch.kernels import build
     r = Renderer(full_feature(), get_profile("1080p", quality=quality))
     check(r.backend == "pallas_win" and
           r.profile.iters_per_chunk == CHAOS_STEPS,
           f"backend {r.backend}, {r.profile.iters_per_chunk} steps a chunk")
+    check((chaos.LIBRARY, chaos.key_defines(r.key)) in build._LOADED,
+          "chaos: the Renderer did not load its key's library")
     B, K, dev = CHAOS_BATCH, CHAOS_STEPS, r.device
     plan, state = chaos_chunk(torch, chaos, it, r, seed=1)
 
@@ -2261,7 +2277,12 @@ def phase_chaos(torch, flush, tiled_sort, Renderer, full_feature,
     ops_per_step = sum(FULL_FEATURE_STEP_OPS.values())
     b_ms, b_by = bound(nbytes, ops_per_step * K * B)
     times = {**t, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    # the key's library, built in phase 2 and loaded by the Renderer
+    key_lib = chaos.library_path(r.key)
     phase(13, "chaos", part="a_chunk", genome="full_feature",
+          library=os.path.relpath(key_lib, REPO),
+          ptxas=ptxas_numbers(key_lib),
+          share_of_bound=b_ms / t["device_ms"],
           profile="1080p", batch=B, steps=K, rng_exact=True,
           last_xf_exact=True, records_agree_by_step=agree,
           plotted_step_1=live, positions_close_step_1=close,
@@ -2418,7 +2439,14 @@ def roundtrip_times(torch, bp, xq, variant):
     nbytes = 2 * xq.numel() * xq.element_size()
     # the bf16 variants convert every element twice
     b_ms, b_by = bound(nbytes, 0 if variant == "f32" else 2 * xq.numel())
-    return {"bound_bytes": nbytes, **t, "bound_ms": b_ms, "bound_by": b_by}
+    return {"bound_bytes": nbytes, **t, "bound_ms": b_ms, "bound_by": b_by,
+            "grid": bp.roundtrip_grid(xq.shape[1],
+                                      torch.cuda.get_device_properties(
+                                          xq.device).multi_processor_count),
+            "share_of_bound": b_ms / t["device_ms"],
+            "library_share_of_bound": b_ms / t["library_device_ms"],
+            "device_ms_over_library":
+                t["device_ms"] / t["library_device_ms"]}
 
 
 def skeleton_times(torch, bp, dens0, rgb0, add, perm, rbg):
@@ -2527,18 +2555,31 @@ def phase_probe(torch, n_bins, kind):
              "rgb16_skeleton": skel_err})
 
 
-def build_all(build):
-    """Every kernel library, one nvcc each, all started together:
-    {library: (path, build seconds)}."""
-    def timed_build(lib):
+def build_jobs(chaos, get_genome):
+    """{label: (library, -D definitions)} of every library the script
+    launches: each csrc/*.cu of KERNELS, the chaos game's once for the
+    structure key of each of CHAOS_GENOMES ("chaos_iterate[name]")."""
+    jobs = {lib: (lib, ()) for lib, _ in KERNELS.values()
+            if lib != chaos.LIBRARY}
+    for name in CHAOS_GENOMES:
+        key = get_genome(name).structure_key()
+        jobs[f"{chaos.LIBRARY}[{name}]"] = (chaos.LIBRARY,
+                                            chaos.key_defines(key))
+    return jobs
+
+
+def build_all(build, jobs):
+    """Every library of `jobs`, one nvcc each, all started together, then
+    loaded: {label: (path, build seconds)}."""
+    def timed_build(label):
         t0 = time.perf_counter()
-        path = build.build(lib)
+        path = build.build(*jobs[label])
         return path, time.perf_counter() - t0
-    libs = sorted({lib for lib, _ in KERNELS.values()})
-    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
-        built = dict(zip(libs, pool.map(timed_build, libs)))
-    for lib in libs:
-        build.load(lib)
+    labels = sorted(jobs)
+    with concurrent.futures.ThreadPoolExecutor(len(labels)) as pool:
+        built = dict(zip(labels, pool.map(timed_build, labels)))
+    for label in labels:
+        build.load(*jobs[label])
     return built
 
 
@@ -2551,6 +2592,18 @@ def ptxas_lines(path):
     return [ln.strip() for ln in log.read_text().splitlines()
             if "Compiling entry" in ln or "registers" in ln
             or "spill" in ln]
+
+
+def ptxas_numbers(path):
+    """{registers, stack_frame, spill_stores, spill_loads} (bytes but the
+    first) of the one kernel of a library built with -Xptxas -v."""
+    text = "\n".join(ptxas_lines(path))
+    regs = re.search(r"Used (\d+) registers", text)
+    frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", text)
+    check(regs and frame, f"{path}: no ptxas report")
+    return {"registers": int(regs[1]), "stack_frame": int(frame[1]),
+            "spill_stores": int(frame[2]), "spill_loads": int(frame[3])}
 
 
 def main(argv=None) -> int:
@@ -2570,6 +2623,8 @@ def main(argv=None) -> int:
     from cuburn_tpu_torch.kernels import build
     from cuburn_tpu_torch.models import (animated_spark, full_feature,
                                          sierpinski)
+    from cuburn_tpu_torch.models.gallery import get_genome
+    from cuburn_tpu_torch.ops import chaos
     from cuburn_tpu_torch.ops import flush, sort, tiled_sort
     from cuburn_tpu_torch.ops import histogram as thist
     from cuburn_tpu_torch.ops import iterate as tit
@@ -2587,7 +2642,7 @@ def main(argv=None) -> int:
           cuda=torch.version.cuda, count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    libs = build_all(build)
+    libs = build_all(build, build_jobs(chaos, get_genome))
     phase(2, "build", seconds=round(time.perf_counter() - t0, 3),
           libraries={k: os.path.relpath(v, REPO)
                      for k, (v, _s) in libs.items()},
@@ -2651,6 +2706,8 @@ def main(argv=None) -> int:
                              phase_probe(torch, n_bins, kind)):
         got.update(of_probe)
 
+    check((chaos.LIBRARY, ()) not in build._LOADED,
+          "the generic chaos library (no chaos game) was loaded")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu",
         "replaces": replaces, "launches": launches[name],

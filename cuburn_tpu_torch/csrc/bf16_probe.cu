@@ -22,18 +22,24 @@
 // and `add` (512 KB) stays in L2.
 //
 // What the design does about it.  The TPU walks its grid in order with
-// one VMEM buffer; the card runs independent blocks at once, so each
-// block owns a tile of rows and keeps many copies in flight across the
-// SMs:
-//   - bf16_roundtrip_kernel: one block a tile of kRoundRows rows of all
-//     3 planes (48 KB of bf16, 96 KB for the f32 control; shared memory
-//     above 48 KB is opted into before the launch).  kMulti waits once
-//     for three plane copies, the counterpart of one DMA and one
-//     semaphore wait; kPerPlane copies and waits a plane at a time, the
-//     mbarrier's phase parity flipping each time; kF32 converts nothing.
-//     The bf16 variants turn every element bf16 -> f32 -> bf16 (round
-//     to nearest even) in registers, back into the stage, which is
-//     stored plane by plane.  A ragged last tile copies fewer rows.
+// one VMEM buffer; the card runs independent blocks at once:
+//   - bf16_roundtrip_kernel: persistent blocks, one a SM (the wrapper
+//     sizes the grid from the SM count), each walking the tiles of
+//     kRoundRows rows of all 3 planes blockIdx.x, + gridDim.x, ...
+//     through a ring of kRoundStages tiles in shared memory (96 KB of
+//     bf16, 192 KB for the f32 control): the
+//     bulk loads of the next kRoundAhead tiles are in flight while a
+//     tile converts and stores, and a stage is loaded again only once
+//     the stores of its last tile have read it (wait_group.read).  A
+//     block once a tile, as before, loaded, waited, stored and exited
+//     with nothing overlapped inside it, and lost its waves' tails.
+//     kMulti waits once a tile for its three plane copies, the
+//     counterpart of one DMA and one semaphore wait; kPerPlane waits a
+//     plane at a time, each plane on an mbarrier of its own (one phase a
+//     plane a tile); kF32 converts nothing.  The bf16 variants turn every
+//     element bf16 -> f32 -> bf16 (round to nearest even) in registers,
+//     back into the stage, which is stored plane by plane.  A ragged
+//     last tile copies fewer rows.
 //   - rgb16_skeleton_kernel: the grid is (rows / kBlockRows blocks) x
 //     (kBlockRows / kSkelRows tiles).  Block (rb, t) counts the visits
 //     of its rb in the schedule with __syncthreads_count, a strided
@@ -64,7 +70,16 @@ constexpr int kPlanes = 3;            // rgb
 constexpr int kAccPlanes = 4;         // rgb + density
 constexpr int kLanes = 128;           // elements a row
 constexpr int kThreads = 256;
-constexpr int kRoundRows = 64;        // rows of a roundtrip tile
+constexpr int kRoundRows = 32;        // rows of a roundtrip tile
+// roundtrip tiles in shared memory a block, and of them the loads kept
+// in flight ahead of the tile being converted (the rest: the one whose
+// stores drain).  96 KB a block in bf16, 192 KB in f32.  Other shapes
+// timed on the card in turns (tiles of 8-64 rows, 3-8 stages, 1-4
+// blocks a SM, L2 evict-first hints) were no faster.
+constexpr int kRoundStages = 4;
+constexpr int kRoundAhead = 2;
+static_assert(kRoundAhead >= 1 && kRoundAhead + 2 <= kRoundStages,
+              "a stage converting, one draining, the rest loading");
 constexpr int kBlockRows = 256;       // probes/bf16probe.py BR
 constexpr int kSkelRows = 16;         // rows of a skeleton tile
 constexpr int kTileElems = kSkelRows * kLanes;
@@ -161,9 +176,11 @@ template <int kVariant>
 using Elem = typename std::conditional<kVariant == kF32, float,
                                        __nv_bfloat16>::type;
 
+// shared memory of a roundtrip block: kRoundStages tiles of 3 planes
 template <int kVariant>
 constexpr int stage_bytes() {
-  return kPlanes * kRoundRows * kLanes * sizeof(Elem<kVariant>);
+  return kRoundStages * kPlanes * kRoundRows * kLanes *
+         sizeof(Elem<kVariant>);
 }
 
 // bf16 -> f32 -> bf16 of 8 bf16 values in place.
@@ -178,68 +195,97 @@ __device__ __forceinline__ void round_trip8(uint4* p) {
   *p = v;
 }
 
+// One thread: the stores it committed before the newest kPending
+// groups have read shared memory (their stages may be reused).
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read_but() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(kPending)
+               : "memory");
+}
+
+// A persistent block walks the tiles blockIdx.x, + gridDim.x, ... with
+// kRoundStages tiles in shared memory: the loads of its next
+// kRoundAhead tiles are in flight while it converts and stores one, and
+// the stores of the one before drain.  At the start of step i thread 0
+// waits until the stores of tile i - 2 have read their stage (all but
+// the newest group, tile i - 1's), then loads tile i + 2 into it.
+// kMulti and kF32 count a tile's three plane copies on one mbarrier a
+// stage; kPerPlane gives each plane its own (one phase a plane a use).
 template <int kVariant>
 __global__ void __launch_bounds__(kThreads)
     bf16_roundtrip_kernel(const Elem<kVariant>* __restrict__ x,
-                          Elem<kVariant>* __restrict__ out, int64_t rows) {
+                          Elem<kVariant>* __restrict__ out, int64_t rows,
+                          int n_tiles) {
   extern __shared__ __align__(128) unsigned char stage[];
-  __shared__ __align__(8) uint64_t bar;
+  constexpr int kBars = kVariant == kPerPlane ? kPlanes : 1;
+  __shared__ __align__(8) uint64_t bars[kRoundStages][kBars];
   using T = Elem<kVariant>;
-  const int64_t r0 = int64_t(blockIdx.x) * kRoundRows;
-  const int64_t left = rows - r0;
-  const int n = left < kRoundRows ? static_cast<int>(left) : kRoundRows;
-  const uint32_t plane_bytes = n * kLanes * sizeof(T);
   constexpr uint32_t kStagePlane = kRoundRows * kLanes * sizeof(T);
-  const uint32_t b = smem_u32(&bar);
-  const uint32_t s = smem_u32(stage);
-  // plane c's rows [r0, r0 + n) are one contiguous run
-  const auto at = [&](int c) { return (int64_t(c) * rows + r0) * kLanes; };
-
-  if (threadIdx.x == 0) mbar_init(b);
-  __syncthreads();
-  if constexpr (kVariant == kPerPlane) {
+  constexpr uint32_t kStageBytes = kPlanes * kStagePlane;
+  const int mine = n_tiles > static_cast<int>(blockIdx.x)
+                       ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1
+                       : 0;
+  const uint32_t s0 = smem_u32(stage);
+  // rows and plane bytes of the block's i-th tile
+  const auto tile_rows = [&](int i, int64_t& r0) {
+    r0 = (int64_t(blockIdx.x) + int64_t(i) * gridDim.x) * kRoundRows;
+    const int64_t left = rows - r0;
+    return left < kRoundRows ? static_cast<int>(left) : kRoundRows;
+  };
+  // thread 0: the i-th tile's plane copies into stage i % kRoundStages
+  const auto load = [&](int i) {
+    int64_t r0;
+    const uint32_t plane_bytes = tile_rows(i, r0) * kLanes * sizeof(T);
+    const int st = i % kRoundStages;
+    if (kBars == 1)
+      mbar_expect_tx(smem_u32(&bars[st][0]), kPlanes * plane_bytes);
     for (int c = 0; c < kPlanes; ++c) {
-      if (threadIdx.x == 0) {
-        mbar_expect_tx(b, plane_bytes);
-        bulk_load(s + c * kStagePlane, x + at(c), plane_bytes, b);
-      }
-      mbar_wait(b, c & 1);
-      // every thread has seen this phase before the next one starts, so
-      // none waits on a parity the barrier has already passed twice
-      __syncthreads();
+      const uint32_t bar = smem_u32(&bars[st][kBars == 1 ? 0 : c]);
+      if (kBars != 1) mbar_expect_tx(bar, plane_bytes);
+      bulk_load(s0 + st * kStageBytes + c * kStagePlane,
+                x + (int64_t(c) * rows + r0) * kLanes, plane_bytes, bar);
     }
-  } else {
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(b, kPlanes * plane_bytes);
-      for (int c = 0; c < kPlanes; ++c)
-        bulk_load(s + c * kStagePlane, x + at(c), plane_bytes, b);
-    }
-    mbar_wait(b, 0);
-  }
-
-  if constexpr (kVariant != kF32) {
-    const int vecs = n * kLanes / 8;        // 8 bf16 (16 bytes) a vector
-    for (int c = 0; c < kPlanes; ++c) {
-      auto* p = reinterpret_cast<uint4*>(stage + c * kStagePlane);
-      for (int i = threadIdx.x; i < vecs; i += kThreads) round_trip8(p + i);
-    }
-  }
-  fence_async_shared();
-  __syncthreads();
+  };
 
   if (threadIdx.x == 0) {
+    for (int st = 0; st < kRoundStages; ++st)
+      for (int b = 0; b < kBars; ++b) mbar_init(smem_u32(&bars[st][b]));
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kRoundAhead && i < mine; ++i) load(i);
+
+  for (int i = 0; i < mine; ++i) {
+    const int st = i % kRoundStages;
+    const uint32_t parity = (i / kRoundStages) & 1;
+    if (threadIdx.x == 0 && i + kRoundAhead < mine) {
+      bulk_wait_read_but<kRoundStages - kRoundAhead - 1>();
+      load(i + kRoundAhead);
+    }
+    int64_t r0;
+    const int n = tile_rows(i, r0);
+    const uint32_t plane_bytes = n * kLanes * sizeof(T);
+    unsigned char* tile = stage + st * kStageBytes;
     for (int c = 0; c < kPlanes; ++c) {
-      bulk_store(out + at(c), s + c * kStagePlane, plane_bytes);
-      if (kVariant == kPerPlane) {
-        bulk_commit();
-        bulk_wait_read();
+      if (kBars != 1 || c == 0)
+        mbar_wait(smem_u32(&bars[st][kBars == 1 ? 0 : c]), parity);
+      if constexpr (kVariant != kF32) {
+        auto* p = reinterpret_cast<uint4*>(tile + c * kStagePlane);
+        const int vecs = n * kLanes / 8;    // 8 bf16 (16 bytes) a vector
+        for (int v = threadIdx.x; v < vecs; v += kThreads)
+          round_trip8(p + v);
       }
     }
-    if (kVariant != kPerPlane) {
+    fence_async_shared();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int c = 0; c < kPlanes; ++c)
+        bulk_store(out + (int64_t(c) * rows + r0) * kLanes,
+                   s0 + st * kStageBytes + c * kStagePlane, plane_bytes);
       bulk_commit();
-      bulk_wait_read();       // the stage stays live until it is read
     }
   }
+  if (threadIdx.x == 0) bulk_wait_read();   // the stages live until read
 }
 
 // shared memory of a skeleton block: add (4 planes), density, rgb (3)
@@ -366,35 +412,35 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 }
 
 template <int kVariant>
-int launch_roundtrip(const void* x, void* out, int64_t rows,
+int launch_roundtrip(const void* x, void* out, int64_t rows, int grid,
                      cudaStream_t stream) {
   constexpr int kBytes = stage_bytes<kVariant>();
   static const cudaError_t attr =
       allow_smem(bf16_roundtrip_kernel<kVariant>, kBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const auto blocks =
-      static_cast<unsigned>((rows + kRoundRows - 1) / kRoundRows);
-  bf16_roundtrip_kernel<kVariant><<<blocks, kThreads, kBytes, stream>>>(
+  const int64_t n_tiles = (rows + kRoundRows - 1) / kRoundRows;
+  if (n_tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  bf16_roundtrip_kernel<kVariant><<<grid, kThreads, kBytes, stream>>>(
       static_cast<const Elem<kVariant>*>(x), static_cast<Elem<kVariant>*>(out),
-      rows);
+      rows, static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// One bf16_roundtrip_kernel launch: out = x through the shared-memory
-// stage, x and out contiguous (3, rows, 128), bf16 for variants 0
-// (multi) and 1 (per_plane), float32 for 2 (f32).
+// One bf16_roundtrip_kernel launch of `grid` persistent blocks: out = x
+// through the shared-memory stages, x and out contiguous (3, rows, 128),
+// bf16 for variants 0 (multi) and 1 (per_plane), float32 for 2 (f32).
 extern "C" int bf16_roundtrip(const void* x, void* out, int64_t rows,
-                              int variant, cudaStream_t stream) {
-  if (rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                              int variant, int grid, cudaStream_t stream) {
+  if (rows <= 0 || grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (variant) {
     case kMulti:
-      return launch_roundtrip<kMulti>(x, out, rows, stream);
+      return launch_roundtrip<kMulti>(x, out, rows, grid, stream);
     case kPerPlane:
-      return launch_roundtrip<kPerPlane>(x, out, rows, stream);
+      return launch_roundtrip<kPerPlane>(x, out, rows, grid, stream);
     case kF32:
-      return launch_roundtrip<kF32>(x, out, rows, stream);
+      return launch_roundtrip<kF32>(x, out, rows, grid, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

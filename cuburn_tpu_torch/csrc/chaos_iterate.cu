@@ -25,31 +25,45 @@
 //
 // What the design does about it: one thread per trajectory, its state
 // in registers for the whole chunk; the per-xform table and the CDF rows
-// are a few hundred bytes, read through L1.  The variations are
-// __host__ __device__ functions, one per flam3 name (VARIATION below),
-// dispatched by a switch on the key's list of variation ids, which is
-// the same for every lane (warp-uniform).  One library serves every
-// genome; a kernel generated per structure key (cuburn's IterCode) is
-// speed work for later.  The library builds with -fmad=false and
-// without --use_fast_math, so every float op rounds as PyTorch's does;
-// the libm calls (sinf, atan2f, powf, ...) differ from PyTorch's by
-// a few ulps, which the chaos game then amplifies: positions agree
-// step by step within rounding, renders by distribution.
+// are a few hundred bytes, staged in shared memory once a block.  The batch caps the
+// parallelism (2^17 lanes is ~8 warps a scheduler), so the latency of
+// each lane's chain of libm calls is hidden by instruction-level
+// parallelism inside the lane or not at all.  Hence the kernel is
+// compiled per structure key, as cuburn's IterCode generates one per
+// genome: ops/chaos.py key_defines() turns a StructureKey into -D
+// definitions (CHAOS_KEY and the lists below), and the union's
+// variations, the final xform's, has_post, has_xaos, cam_mode and
+// n_xforms become compile-time constants.  The variations of a stack
+// are __forceinline__ calls unrolled from a type list, in key order:
+// no switch, no loop over ids, so the compiler interleaves independent
+// variations and drops every precalc that none of them reads.  The
+// library builds with -fmad=false and without --use_fast_math, so every
+// float op rounds as PyTorch's does; the libm calls (sinf, atan2f,
+// powf, ...) differ from PyTorch's CPU kernels by a few ulps, which the
+// chaos game then amplifies: positions agree step by step within
+// rounding, renders by distribution.  On the card the kernel is
+// bit-exact to the eager loop, which calls the same libdevice functions.
 //
-// Built with -DCHAOS_HOST by a host C++ compiler (c++ -x c++), the
-// same lane code runs in plain loops behind the same C entries, for
-// the CPU tests; that build has no __global__ function.
+// Without CHAOS_KEY the source builds the generic library: every
+// variation behind a switch for chaos_variation (one variation at n
+// points, for the tests) and no chaos_iterate entry at all, so nothing
+// can fall back to an interpreted genome.
+//
+// Built with -DCHAOS_HOST by a host C++ compiler (c++ -x c++), with or
+// without a key's definitions, the same lane code runs in plain loops
+// behind the same C entries, for the CPU tests; that build has no
+// __global__ function.
 
 #include <cmath>
 #include <cstdint>
 #include <cstring>
 
 #ifdef CHAOS_HOST
-#define CB_HD inline
+#define CB_HD inline __attribute__((always_inline))
 typedef void* chaos_stream_t;
 #else
 #include <cuda_runtime.h>
-#define CB_HD __host__ __device__ inline
+#define CB_HD __host__ __device__ __forceinline__
 typedef cudaStream_t chaos_stream_t;
 #endif
 
@@ -99,9 +113,6 @@ const char* const kVariationNames[] = {
     CHAOS_VARIATIONS(X)
 #undef X
 };
-
-// a union holds each variation at most once
-constexpr int kMaxVars = kNumVariations;
 
 CB_HD bool is_finite(float v) {
   uint32_t b;
@@ -1039,61 +1050,79 @@ VARIATION(mobius) {
 
 #undef VARIATION
 
-CB_HD void apply_variation(int id, const Ctx& c, float w, const float* p,
-                           Rng& rng, float& dx, float& dy) {
-  switch (id) {
-#define X(name)                             \
-  case kVar_##name:                         \
-    v_##name(c, w, p, rng, dx, dy);         \
-    return;
-    CHAOS_VARIATIONS(X)
-#undef X
-    default:
-      dx = dy = NAN;
-  }
-}
-
 // ops/xform.py apply_variation_stack: pre_blur moves the point first,
-// then every other variation of the list adds its term, in list order
-CB_HD void variation_stack(const int* ids, const int* par, int n,
-                           const float* weights, const float* params,
-                           const float* aff, float tx, float ty, Rng& rng,
-                           float& ox, float& oy) {
-  for (int i = 0; i < n; ++i) {
-    if (ids[i] == kVar_pre_blur) {
-      const float g = weights[i] * rng.gaussian_ish();
+// then every other variation of the list adds its term, in list order.
+// The list is a structure key's, a type: Stack<0, Ints<id...>,
+// Ints<knob offset...>> unrolls it, the K-th entry reading weights[K].
+template <int... I> struct Ints {};
+
+template <int K, class Ids, class Pars> struct Stack;
+
+template <int K> struct Stack<K, Ints<>, Ints<>> {
+  static CB_HD void pre_blur(const float*, Rng&, float&, float&) {}
+  static CB_HD void add(const Ctx&, const float*, const float*, Rng&,
+                        float&, float&) {}
+};
+
+template <int K, int Id, int... Ids, int Par, int... Pars>
+struct Stack<K, Ints<Id, Ids...>, Ints<Par, Pars...>> {
+  using Rest = Stack<K + 1, Ints<Ids...>, Ints<Pars...>>;
+
+  static CB_HD void pre_blur(const float* weights, Rng& rng, float& tx,
+                             float& ty) {
+    if constexpr (Id == kVar_pre_blur) {
+      const float g = weights[K] * rng.gaussian_ish();
       const float a = kTwoPi * rng.uniform();
       tx = tx + g * cosf(a);
       ty = ty + g * sinf(a);
     }
+    Rest::pre_blur(weights, rng, tx, ty);
   }
+
+  static CB_HD void add(const Ctx& c, const float* weights,
+                        const float* params, Rng& rng, float& ox,
+                        float& oy) {
+    if constexpr (Id != kVar_pre_blur) {
+      float dx, dy;
+#define X(name)                   \
+  if constexpr (Id == kVar_##name) \
+    v_##name(c, weights[K], params + Par, rng, dx, dy);
+      CHAOS_VARIATIONS(X)
+#undef X
+      ox = ox + dx;
+      oy = oy + dy;
+    }
+    Rest::add(c, weights, params, rng, ox, oy);
+  }
+};
+
+template <class Ids, class Pars>
+CB_HD void variation_stack(const float* weights, const float* params,
+                           const float* aff, float tx, float ty, Rng& rng,
+                           float& ox, float& oy) {
+  Stack<0, Ids, Pars>::pre_blur(weights, rng, tx, ty);
   const Ctx c = make_ctx(tx, ty, aff);
   ox = 0.0f;
   oy = 0.0f;
-  for (int i = 0; i < n; ++i) {
-    if (ids[i] == kVar_pre_blur) continue;
-    float dx, dy;
-    apply_variation(ids[i], c, weights[i], params + par[i], rng, dx, dy);
-    ox = ox + dx;
-    oy = oy + dy;
-  }
+  Stack<0, Ids, Pars>::add(c, weights, params, rng, ox, oy);
 }
 
 }  // namespace
 
 // Offsets into ChaosArgs::scal, the float scalars of one genome
-// evaluation; the final xform's weights and knobs follow at final_wcol
-// and final_pcol.
+// evaluation; the final xform's weights and knobs follow at kScalFixed.
 enum ScalOffset {
   kFinalAffine = 0, kFinalPost = 6, kFinalColor = 12, kFinalSpeed = 13,
   kCenter = 14, kRotCenter = 16, kPpu = 18, kRotate = 19, kCam3d = 20,
   kScalFixed = 25
 };
 
-// Everything one launch reads: mirrored field for field by
+// What one launch reads at run time: mirrored field for field by
 // ops/chaos.py ChaosArgs (ctypes), passed by value as the kernel's
-// parameter.  Tensors are device pointers (host pointers in the host
-// build); nothing here needs a sync to fill.
+// parameter.  The state, the outputs and the genome evaluation's tables
+// as device pointers (host pointers in the host build), the camera and
+// the record layout as ints; the structure key is compiled in.  Nothing
+// here needs a sync to fill.
 struct ChaosArgs {
   const float* x;
   const float* y;
@@ -1113,14 +1142,9 @@ struct ChaosArgs {
   const float* table;             // (n_xforms, n_cols) build_xform_table
   const float* cdf;               // (n_xforms, n_xforms) xform_cdf_rows
   const float* scal;              // ScalOffset layout
-  int batch, n_iters, n_xforms, n_cols, has_xaos;
-  int post_col;                   // -1: no post transform
-  int wcol, pcol, n_vars;
-  int has_final, final_has_post, final_n_vars, final_wcol, final_pcol;
-  int cam_mode, no_rotation, ss, acc_width, acc_height, full_acc_height;
+  int batch, n_iters;
+  int no_rotation, ss, acc_width, acc_height, full_acc_height;
   int tile_row0, junk_bin, fuse, cbits, tot_bits, op_bits, unpacked;
-  int var_id[kMaxVars], var_par[kMaxVars];
-  int final_var_id[kMaxVars], final_var_par[kMaxVars];
 };
 
 // One variation alone at n points, for the tests: tx, ty, w per point,
@@ -1144,6 +1168,54 @@ CB_HD void affine(const float* m, float x, float y, float& ox, float& oy) {
   ox = m[0] * x + m[1] * y + m[2];
   oy = m[3] * x + m[4] * y + m[5];
 }
+
+#ifdef CHAOS_KEY
+// -- the structure key, compile-time -------------------------------------
+// ops/chaos.py key_defines() gives:
+//   CHAOS_N_XFORMS, CHAOS_N_COLS (the table's columns), CHAOS_HAS_POST,
+//   CHAOS_HAS_XAOS, CHAOS_CAM_MODE;
+//   CHAOS_VARS, CHAOS_VAR_PARS: the union in key order, V(name) each,
+//     and the offset of each one's first knob in the row's knobs, O(n)
+//     each (no commas: nvcc splits a -D value at its commas);
+//   CHAOS_HAS_FINAL, CHAOS_FINAL_HAS_POST, CHAOS_FINAL_VARS,
+//     CHAOS_FINAL_PARS: the final xform's, the same way.
+template <int... I, int J>
+constexpr Ints<I..., J> operator+(Ints<I...>, Ints<J>) {
+  return {};
+}
+
+#define V(name) +Ints<kVar_##name>{}
+#define O(n) +Ints<n>{}
+using UnionIds = decltype(Ints<>{} CHAOS_VARS);
+using UnionPars = decltype(Ints<>{} CHAOS_VAR_PARS);
+using FinalIds = decltype(Ints<>{} CHAOS_FINAL_VARS);
+using FinalPars = decltype(Ints<>{} CHAOS_FINAL_PARS);
+#undef V
+#undef O
+
+template <int... I>
+constexpr int length(Ints<I...>) {
+  return sizeof...(I);
+}
+
+constexpr int kNXforms = CHAOS_N_XFORMS;
+constexpr int kNCols = CHAOS_N_COLS;
+constexpr bool kHasPost = CHAOS_HAS_POST;
+constexpr bool kHasXaos = CHAOS_HAS_XAOS;
+constexpr int kCamMode = CHAOS_CAM_MODE;
+constexpr bool kHasFinal = CHAOS_HAS_FINAL;
+constexpr bool kFinalHasPost = CHAOS_FINAL_HAS_POST;
+// build_xform_table's columns: affine 0:6, colour, speed, opacity, post
+// 9:15 when has_post, the union's weights, its knobs
+constexpr int kPostCol = 9;
+constexpr int kWCol = kHasPost ? 15 : 9;
+constexpr int kPCol = kWCol + length(UnionIds{});
+constexpr int kFinalWCol = kScalFixed;
+constexpr int kFinalPCol = kScalFixed + length(FinalIds{});
+static_assert(length(UnionIds{}) == length(UnionPars{}) &&
+                  length(FinalIds{}) == length(FinalPars{}),
+              "an offset for every variation");
+static_assert(kNXforms >= 1 && kNCols > kPCol, "a table row per xform");
 
 // ops/camera.py project: the accumulator address, or the junk bin when
 // the point falls outside the (stripe's) accumulator
@@ -1178,8 +1250,7 @@ CB_HD int64_t project(const ChaosArgs& a, float x, float y) {
 
 // ops/camera.py project_3d, with the depth-of-field pair drawn under
 // cam_mode 2
-CB_HD void project_3d(const float* cam3d, int cam_mode, Rng& rng, float& x,
-                      float& y) {
+CB_HD void project_3d(const float* cam3d, Rng& rng, float& x, float& y) {
   const float yaw = cam3d[0], pitch = cam3d[1], persp = cam3d[2],
               zpos = cam3d[3], dof = cam3d[4];
   const float z = -zpos;
@@ -1190,7 +1261,7 @@ CB_HD void project_3d(const float* cam3d, int cam_mode, Rng& rng, float& x,
   float y2 = y1 * cp - z * sp;
   const float depth = y1 * sp + z * cp;
   const float zr = 1.0f - persp * depth;
-  if (cam_mode >= 2) {
+  if constexpr (kCamMode >= 2) {
     const float u1 = rng.uniform();
     const float u2 = rng.uniform();
     const float dr = u1 * (kTenth * dof * z);
@@ -1217,19 +1288,19 @@ CB_HD void chaos_lane(const ChaosArgs& a, int lane) {
     // select and fetch: the count of CDF entries <= u
     const uint32_t bits = rng.bits();
     const float u = static_cast<float>(bits >> 8) * kInv24;
-    const float* cdf = a.cdf + (a.has_xaos ? last * a.n_xforms : 0);
+    const float* cdf = a.cdf + (kHasXaos ? last * kNXforms : 0);
     int idx = 0;
-    for (int j = 0; j < a.n_xforms; ++j) idx += u >= cdf[j] ? 1 : 0;
-    idx = idx < a.n_xforms - 1 ? idx : a.n_xforms - 1;
-    const float* row = a.table + static_cast<int64_t>(idx) * a.n_cols;
+    for (int j = 0; j < kNXforms; ++j) idx += u >= cdf[j] ? 1 : 0;
+    idx = idx < kNXforms - 1 ? idx : kNXforms - 1;
+    const float* row = a.table + idx * kNCols;
 
     float tx, ty, nx, ny;
     affine(row, x, y, tx, ty);
-    variation_stack(a.var_id, a.var_par, a.n_vars, row + a.wcol,
-                    row + a.pcol, row, tx, ty, rng, nx, ny);
-    if (a.post_col >= 0) {
+    variation_stack<UnionIds, UnionPars>(row + kWCol, row + kPCol, row, tx,
+                                         ty, rng, nx, ny);
+    if constexpr (kHasPost) {
       const float ox = nx, oy = ny;
-      affine(row + a.post_col, ox, oy, nx, ny);
+      affine(row + kPostCol, ox, oy, nx, ny);
     }
     const float speed = row[7];
     float ncolor = color * (1.0f - speed) + row[6] * speed;
@@ -1253,20 +1324,20 @@ CB_HD void chaos_lane(const ChaosArgs& a, int lane) {
 
     // plot a copy: the final xform, the 3-D camera, the projection
     float px = nx, py = ny, pcolor = ncolor;
-    if (a.has_final) {
+    if constexpr (kHasFinal) {
       float tx2, ty2;
       affine(s + kFinalAffine, nx, ny, tx2, ty2);
-      variation_stack(a.final_var_id, a.final_var_par, a.final_n_vars,
-                      s + a.final_wcol, s + a.final_pcol, s + kFinalAffine,
-                      tx2, ty2, rng, px, py);
-      if (a.final_has_post) {
+      variation_stack<FinalIds, FinalPars>(s + kFinalWCol, s + kFinalPCol,
+                                           s + kFinalAffine, tx2, ty2, rng,
+                                           px, py);
+      if constexpr (kFinalHasPost) {
         const float ox = px, oy = py;
         affine(s + kFinalPost, ox, oy, px, py);
       }
       const float fspeed = s[kFinalSpeed];
       pcolor = ncolor * (1.0f - fspeed) + s[kFinalColor] * fspeed;
     }
-    if (a.cam_mode) project_3d(s + kCam3d, a.cam_mode, rng, px, py);
+    if constexpr (kCamMode != 0) project_3d(s + kCam3d, rng, px, py);
     int64_t addr = project(a, px, py);
     if (!(age >= a.fuse && opacity > 0.0f)) addr = a.junk_bin;
 
@@ -1299,6 +1370,22 @@ CB_HD void chaos_lane(const ChaosArgs& a, int lane) {
   wo[3] = rng.w;
 }
 
+#else  // the generic library: one variation at n points
+
+CB_HD void apply_variation(int id, const Ctx& c, float w, const float* p,
+                           Rng& rng, float& dx, float& dy) {
+  switch (id) {
+#define X(name)                             \
+  case kVar_##name:                         \
+    v_##name(c, w, p, rng, dx, dy);         \
+    return;
+    CHAOS_VARIATIONS(X)
+#undef X
+    default:
+      dx = dy = NAN;
+  }
+}
+
 CB_HD void variation_lane(const VariationArgs& a, int i) {
   int64_t* rw = a.rng + 4 * static_cast<int64_t>(i);
   Rng rng = {static_cast<uint32_t>(rw[0]), static_cast<uint32_t>(rw[1]),
@@ -1310,28 +1397,54 @@ CB_HD void variation_lane(const VariationArgs& a, int i) {
   rw[2] = rng.z;
   rw[3] = rng.w;
 }
+#endif  // CHAOS_KEY
 
 #ifndef CHAOS_HOST
-constexpr int kThreads = 128;
+// two warps a block: 2^17 lanes are 2048 blocks, ~15.5 a SM (faster
+// than 128 and 256 threads, timed in turns on the card; two and four
+// lanes a thread, their steps interleaved, were slower)
+constexpr int kThreads = 64;
+
+#ifdef CHAOS_KEY
+// the xform table and the CDF rows, staged in shared memory once a block
+// where they fit 32 KB (faster than reads through L1, timed in turns on
+// the card; a lane's row is one of n_xforms, so a warp reads several)
+constexpr int kTableFloats = kNXforms * kNCols;
+constexpr int kCdfFloats = kNXforms * kNXforms;
+constexpr bool kStaged = (kTableFloats + kCdfFloats) * 4 <= 32 * 1024;
 
 __global__ void __launch_bounds__(kThreads)
     chaos_iterate_kernel(const __grid_constant__ ChaosArgs a) {
   const int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane < a.batch) chaos_lane(a, lane);
+  if constexpr (kStaged) {
+    __shared__ float table[kTableFloats], cdf[kCdfFloats];
+    for (int i = threadIdx.x; i < kTableFloats; i += kThreads)
+      table[i] = a.table[i];
+    for (int i = threadIdx.x; i < kCdfFloats; i += kThreads) cdf[i] = a.cdf[i];
+    __syncthreads();
+    ChaosArgs staged = a;
+    staged.table = table;
+    staged.cdf = cdf;
+    if (lane < a.batch) chaos_lane(staged, lane);
+  } else {
+    if (lane < a.batch) chaos_lane(a, lane);
+  }
 }
-
+#else
 __global__ void __launch_bounds__(kThreads)
     chaos_variation_kernel(const __grid_constant__ VariationArgs a) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i < a.n) variation_lane(a, i);
 }
 #endif
+#endif
 
 }  // namespace
 
 // C entries: each runs one kernel launch on `stream` (no sync) and
 // returns cudaGetLastError(); the host build runs the same lanes in a
-// loop and returns 0.
+// loop and returns 0.  A key's library has chaos_iterate, the generic
+// one chaos_variation.
 
 extern "C" int chaos_variation_count() { return kNumVariations; }
 
@@ -1341,6 +1454,7 @@ extern "C" const char* chaos_variation_name(int id) {
 
 extern "C" int chaos_args_size() { return static_cast<int>(sizeof(ChaosArgs)); }
 
+#ifdef CHAOS_KEY
 extern "C" int chaos_iterate(const ChaosArgs* a, chaos_stream_t stream) {
 #ifdef CHAOS_HOST
   (void)stream;
@@ -1354,7 +1468,7 @@ extern "C" int chaos_iterate(const ChaosArgs* a, chaos_stream_t stream) {
   return static_cast<int>(cudaGetLastError());
 #endif
 }
-
+#else
 extern "C" int chaos_variation(const VariationArgs* a,
                                chaos_stream_t stream) {
 #ifdef CHAOS_HOST
@@ -1369,3 +1483,4 @@ extern "C" int chaos_variation(const VariationArgs* a,
   return static_cast<int>(cudaGetLastError());
 #endif
 }
+#endif

@@ -3,10 +3,13 @@
 Each kernel is one `csrc/<name>.cu` file with a plain C entry point;
 what several share lives in `csrc/*.cuh` headers.  `nvcc` compiles a
 source for Hopper (`sm_90a`) into a shared library under
-`cuburn_tpu_torch/_build/`, named by a hash of the source, every header
-and the flags, and `ctypes` loads it.  The build runs at first use in a
-process, from the sources in the checkout; a library already built from
-the same source is reused.  Nothing here runs at import time.
+`cuburn_tpu_torch/_build/`, named by a hash of the source, every header,
+the flags and the `-D` definitions, and `ctypes` loads it.  A source
+built with other definitions is another library: the chaos game's
+kernel is compiled once per structure key that way
+(`ops/chaos.key_defines`).  The build runs at first use in a process,
+from the sources in the checkout; a library already built from the same
+source and definitions is reused.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -52,49 +56,71 @@ def find_nvcc() -> str:
                        "PATH); the CUDA kernels cannot be built")
 
 
-def library_path(name: str) -> Path:
-    """Where the library built from csrc/<name>.cu with NVCC_FLAGS and
-    its LIBRARY_FLAGS lives.  The name changes with the source and with
-    any csrc/*.cuh header, so a changed header rebuilds every library."""
+def library_path(name: str, defines=()) -> Path:
+    """Where the library built from csrc/<name>.cu with NVCC_FLAGS, its
+    LIBRARY_FLAGS and `-D` + each of `defines` lives.  The name changes
+    with the source, the definitions and any csrc/*.cuh header, so a
+    changed header rebuilds every library."""
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     if name in LIBRARY_FLAGS:
         digest.update(" ".join(LIBRARY_FLAGS[name]).encode())
+    if defines:
+        digest.update(("\0".join(("-D", *defines))).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless the library for this exact source
-    already exists; returns the library path.  What the compiler prints
-    on success goes to the library's .log beside it.  Raises
-    RuntimeError with the compiler's output if nvcc fails."""
-    out = library_path(name)
+def build(name: str, defines=()) -> Path:
+    """Compile csrc/<name>.cu with `-D` + each of `defines` unless the
+    library for this exact source and definitions already exists;
+    returns the library path.  What the compiler prints on success goes
+    to the library's .log beside it.  Raises RuntimeError with the
+    compiler's output if nvcc fails."""
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, *LIBRARY_FLAGS.get(name, ()), "-o",
-           str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [find_nvcc(), *NVCC_FLAGS, *LIBRARY_FLAGS.get(name, ()),
+           *(f"-D{d}" for d in defines), "-o", str(tmp),
+           str(CSRC_DIR / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed building {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    if proc.stdout or proc.stderr:
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+                           f"(exit {proc.returncode}):\n{proc.stdout}"
+                           f"{proc.stderr}")
+    out.with_suffix(".log").write_text(
+        f"{name}.cu {' '.join(defines)}\nbuild seconds: "
+        f"{time.perf_counter() - t0:.3f}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)    # atomic: concurrent builders never see half
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, once per
-    process."""
-    lib = _LOADED.get(name)
+def report(build_dir: Path = BUILD_DIR) -> list:
+    """One line a library built in `build_dir`, from its .log: the
+    source and definitions, the build's seconds, and ptxas's registers,
+    stack frame and spills where the flags asked for them."""
+    lines = []
+    for log in sorted(build_dir.glob("*.log")):
+        text = log.read_text().splitlines()
+        ptxas = [ln.strip() for ln in text
+                 if "registers" in ln or "stack frame" in ln]
+        lines.append(" | ".join([log.stem, *text[:2], *ptxas]))
+    return lines
+
+
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library of csrc/<name>.cu
+    with `defines`, once per process."""
+    defines = tuple(defines)
+    lib = _LOADED.get((name, defines))
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        _LOADED[name] = lib
+        lib = ctypes.CDLL(str(build(name, defines)))
+        _LOADED[name, defines] = lib
     return lib
 
 
@@ -111,15 +137,22 @@ def _entry(lib, entry: str, argtypes):
 
 
 def launch(counts: dict, kernel: str, lib: str, entry: str, argtypes,
-           stream: int, *args) -> None:
-    """One kernel launch: call C entry `entry` of csrc/<lib>.cu, which
-    launches exactly one kernel on `stream` (a raw handle, as
-    torch.cuda.current_stream(device).cuda_stream gives it; no sync) and
-    returns cudaGetLastError(), then add one to counts[kernel].
-    `argtypes` leaves out the trailing stream argument; pointers are
-    passed as ints.  Raises RuntimeError on a launch error, uncounted."""
-    fn = _entry(load(lib), entry, argtypes)
+           stream: int, *args, defines=()) -> None:
+    """One kernel launch: call C entry `entry` of csrc/<lib>.cu built
+    with `defines`, which launches exactly one kernel on `stream` (a raw
+    handle, as torch.cuda.current_stream(device).cuda_stream gives it;
+    no sync) and returns cudaGetLastError(), then add one to
+    counts[kernel].  `argtypes` leaves out the trailing stream argument;
+    pointers are passed as ints.  Raises RuntimeError on a launch error,
+    uncounted."""
+    fn = _entry(load(lib, defines) if defines else load(lib), entry,
+                argtypes)
     err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     counts[kernel] += 1
+
+
+if __name__ == "__main__":
+    # python -m cuburn_tpu_torch.kernels.build: what was built here
+    print("\n".join(report()))

@@ -11,18 +11,31 @@ raise on anything else.  `ops/iterate.py` owns the dispatch
 (`iterate_records`, `iterate_full`): the launch on a CUDA tensor, and
 on a CPU tensor the plain version, its eager `iterate_step` loop.
 
+The kernel is compiled per structure key: `key_defines` turns a
+`StructureKey` (the union's variations in key order and their knob
+offsets, the final xform's, has_post, has_xaos, cam_mode, n_xforms)
+into `-D` definitions of `csrc/chaos_iterate.cu`, and `load(key)`
+builds (at its first use in the checkout, into `_build/`) and loads that
+key's library; two genomes with equal keys share it.  Without a key the
+same source is the generic library, which holds `chaos_variation` (one
+variation at n points, for the tests) and no chaos game: nothing falls
+back to an interpreted genome, and a key whose build fails raises with
+nvcc's output.  Callers that know their key load it before any timed
+work (`Renderer.__init__`, the tuner).
+
 A launch reads one `ChaosArgs` struct, passed by value: the state and
-output tensors and the genome's tensors as pointers, and the structure
-key, camera and record layout as ints.  Nothing in it is read back
-from the device, so a chunk costs no sync.  `plan` gathers a genome
-evaluation's tensors once per sample.  `LAUNCHES` counts kernel
-launches in this process; callers reset it to count a run.
+output tensors and the genome evaluation's tensors as pointers, and the
+camera and record layout as ints.  Nothing in it is read back from the
+device, so a chunk costs no sync.  `plan` gathers a genome evaluation's
+tensors once per sample.  `LAUNCHES` counts kernel launches in this
+process; callers reset it to count a run.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -36,7 +49,7 @@ from cuburn_tpu_torch.ops.xform import build_xform_table
 LIBRARY = "chaos_iterate"
 LAUNCHES = {"chaos_iterate": 0}
 
-# the registry's size: a key's union holds each variation at most once
+# the registry's size
 MAX_VARS = 100
 # ChaosArgs.scal: the final xform's affine (6) and post (6), colour and
 # speed, center (2), rot_center (2), ppu, rotate, cam3d (5); the final
@@ -50,18 +63,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 class ChaosArgs(ctypes.Structure):
-    """csrc/chaos_iterate.cu's ChaosArgs, field for field."""
+    """csrc/chaos_iterate.cu's ChaosArgs, field for field: what stays
+    run-time (the key is compiled in)."""
     _fields_ = [(name, _P) for name in (
         *STATE_FIELDS, *(f + "_out" for f in STATE_FIELDS), "rec", "pcolor",
         "opacity", "table", "cdf", "scal")] + [(name, _I) for name in (
-            "batch", "n_iters", "n_xforms", "n_cols", "has_xaos",
-            "post_col", "wcol", "pcol", "n_vars", "has_final",
-            "final_has_post", "final_n_vars", "final_wcol", "final_pcol",
-            "cam_mode", "no_rotation", "ss", "acc_width", "acc_height",
-            "full_acc_height", "tile_row0", "junk_bin", "fuse", "cbits",
-            "tot_bits", "op_bits", "unpacked")] + [
-        (name, _I * MAX_VARS) for name in (
-            "var_id", "var_par", "final_var_id", "final_var_par")]
+            "batch", "n_iters", "no_rotation", "ss", "acc_width",
+            "acc_height", "full_acc_height", "tile_row0", "junk_bin", "fuse",
+            "cbits", "tot_bits", "op_bits", "unpacked")]
 
 
 class VariationArgs(ctypes.Structure):
@@ -112,11 +121,83 @@ def plan(key: StructureKey, cam: CameraSpec, params, cdf_rows, ppu,
                      table=table.contiguous(), scal=scal)
 
 
-# -- the launch -------------------------------------------------------------
+# -- the key's library --------------------------------------------------------
 
-def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library."""
-    return _build.load(LIBRARY)
+def _knob_offsets(names) -> list:
+    """The offset of each variation's first knob in the param_slots
+    packing of `names`, in order."""
+    offsets, off = [], 0
+    for name in names:
+        if name not in VARIATION_PARAMS:
+            raise ValueError(f"{LIBRARY} has no variation {name!r}")
+        offsets.append(off)
+        off += len(VARIATION_PARAMS[name])
+    return offsets
+
+
+def table_cols(key: StructureKey) -> int:
+    """Columns of build_xform_table for `key`: affine, colour, speed,
+    opacity, the post affine under has_post, the union's weights and
+    its knobs (one column when it has none)."""
+    return (15 if key.has_post else 9) + len(key.variations) + \
+        max(len(key.param_slots), 1)
+
+
+@functools.lru_cache(maxsize=None)
+def key_defines(key: StructureKey) -> tuple:
+    """The -D definitions that compile csrc/chaos_iterate.cu for `key`:
+    the union's and the final xform's variations as V(name) lists in
+    key order, their knob offsets as O(n) lists (no commas: nvcc splits
+    a -D value at its commas), and the key's flags and counts."""
+    def lists(names):
+        return ("".join(f"V({n})" for n in names),
+                "".join(f"O({o})" for o in _knob_offsets(names)))
+    u_vars, u_pars = lists(key.variations)
+    f_vars, f_pars = lists(key.final_variations or ())
+    return ("CHAOS_KEY", f"CHAOS_N_XFORMS={key.n_xforms}",
+            f"CHAOS_N_COLS={table_cols(key)}",
+            f"CHAOS_HAS_POST={int(key.has_post)}",
+            f"CHAOS_HAS_XAOS={int(key.has_xaos)}",
+            f"CHAOS_CAM_MODE={key.cam_mode}",
+            f"CHAOS_VARS={u_vars}", f"CHAOS_VAR_PARS={u_pars}",
+            f"CHAOS_HAS_FINAL={int(key.final_variations is not None)}",
+            f"CHAOS_FINAL_HAS_POST={int(key.final_has_post)}",
+            f"CHAOS_FINAL_VARS={f_vars}", f"CHAOS_FINAL_PARS={f_pars}")
+
+
+def library_path(key: StructureKey | None = None):
+    """Where `key`'s library (the generic one without a key) is built."""
+    return _build.library_path(LIBRARY, key_defines(key) if key else ())
+
+
+def load(key: StructureKey | None = None) -> ctypes.CDLL:
+    """Build (if needed) and load `key`'s library, whose chaos_iterate
+    runs that key's chaos game; without a key, the generic library of
+    chaos_variation.  Raises with nvcc's output if the build fails."""
+    if key is None:
+        return _checked(_build.load(LIBRARY))
+    return _checked(_build.load(LIBRARY, key_defines(key)))
+
+
+_CHECKED: set = set()
+
+
+def _checked(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib`, once its registry size and its ChaosArgs are this
+    module's."""
+    if lib not in _CHECKED:
+        n = lib.chaos_variation_count()
+        if n != MAX_VARS or lib.chaos_args_size() != \
+                ctypes.sizeof(ChaosArgs):
+            raise RuntimeError(
+                f"{LIBRARY}: {n} variations and a {lib.chaos_args_size()}"
+                f"-byte ChaosArgs; ops/chaos.py has {MAX_VARS} and "
+                f"{ctypes.sizeof(ChaosArgs)}")
+        _CHECKED.add(lib)
+    return lib
+
+
+# -- the launch -------------------------------------------------------------
 
 
 def full_outputs(state, n_iters: int):
@@ -138,35 +219,17 @@ _IDS: dict = {}
 
 
 def variation_ids(lib: ctypes.CDLL) -> dict:
-    """{variation name: its id in the library's switch}, read from the
+    """{variation name: its id in the library's registry}, read from the
     library itself; checks that its ChaosArgs is this module's."""
     ids = _IDS.get(lib)
     if ids is None:
+        _checked(lib)
         lib.chaos_variation_name.restype = ctypes.c_char_p
         lib.chaos_variation_name.argtypes = (ctypes.c_int,)
-        n = lib.chaos_variation_count()
-        if n != MAX_VARS or lib.chaos_args_size() != \
-                ctypes.sizeof(ChaosArgs):
-            raise RuntimeError(
-                f"{LIBRARY}: {n} variations and a {lib.chaos_args_size()}"
-                f"-byte ChaosArgs; ops/chaos.py has {MAX_VARS} and "
-                f"{ctypes.sizeof(ChaosArgs)}")
-        ids = {lib.chaos_variation_name(i).decode(): i for i in range(n)}
+        ids = {lib.chaos_variation_name(i).decode(): i
+               for i in range(MAX_VARS)}
         _IDS[lib] = ids
     return ids
-
-
-def _var_lists(ids: dict, names) -> tuple:
-    """(ids, offsets of each variation's first knob) of a key's union,
-    in its order: the param_slots packing."""
-    out_ids, offsets, off = [], [], 0
-    for name in names:
-        if name not in ids:
-            raise ValueError(f"{LIBRARY} has no variation {name!r}")
-        out_ids.append(ids[name])
-        offsets.append(off)
-        off += len(VARIATION_PARAMS[name])
-    return out_ids, offsets
 
 
 def _check(t: torch.Tensor, dtype, shape, dev, what: str) -> int:
@@ -182,10 +245,11 @@ def _check(t: torch.Tensor, dtype, shape, dev, what: str) -> int:
 def chaos_args(lib: ctypes.CDLL, p: ChaosPlan, state,
                new, rec, pcolor=None,
                opacity=None) -> ChaosArgs:
-    """The ChaosArgs of one launch of `lib`'s chaos_iterate: from
-    `state` into `new` (tensors of the same shapes), records into
-    `rec` ((n_iters, B) int64), and with `pcolor` and `opacity` the
-    unpacked path's outputs.  Checks every tensor."""
+    """The ChaosArgs of one launch of `lib`'s chaos_iterate (the library
+    of p.key): from `state` into `new` (tensors of the same shapes),
+    records into `rec` ((n_iters, B) int64), and with `pcolor` and
+    `opacity` the unpacked path's outputs.  Checks every tensor."""
+    _checked(lib)
     key, cam = p.key, p.cam
     dev = state.x.device
     batch, n_iters = state.x.shape[0], rec.shape[0]
@@ -204,29 +268,15 @@ def chaos_args(lib: ctypes.CDLL, p: ChaosPlan, state,
         a.pcolor = _check(pcolor, f32, (n_iters, batch), dev, "pcolor")
         a.opacity = _check(opacity, f32, (n_iters, batch), dev, "opacity")
     n_x = key.n_xforms
-    n_vars = len(key.variations)
-    n_cols = p.table.shape[1]
-    a.table = _check(p.table, f32, (n_x, n_cols), dev, "table")
+    a.table = _check(p.table, f32, (n_x, table_cols(key)), dev, "table")
     a.cdf = _check(p.cdf_rows, f32, (n_x, n_x), dev, "cdf_rows")
+    # the final xform's weights and knobs as the kernel reads them
+    n_final = len(key.final_variations or ())
+    if n_final and p.params.final_var_weights.numel() != n_final:
+        raise ValueError(f"{LIBRARY}: {p.params.final_var_weights.numel()} "
+                         f"final weights for {n_final} final variations")
     a.scal = _check(p.scal, f32, p.scal.shape, dev, "scal")
-    a.batch, a.n_iters, a.n_xforms, a.n_cols = batch, n_iters, n_x, n_cols
-    a.has_xaos = int(key.has_xaos)
-    a.post_col = 9 if key.has_post else -1
-    a.wcol = 15 if key.has_post else 9
-    a.pcol = a.wcol + n_vars
-    ids = variation_ids(lib)
-    var_id, var_par = _var_lists(ids, key.variations)
-    a.n_vars = n_vars
-    a.var_id[:n_vars], a.var_par[:n_vars] = var_id, var_par
-    if key.final_variations is not None:
-        f_id, f_par = _var_lists(ids, key.final_variations)
-        a.has_final = 1
-        a.final_has_post = int(key.final_has_post)
-        a.final_n_vars = len(f_id)
-        a.final_var_id[:len(f_id)], a.final_var_par[:len(f_id)] = f_id, f_par
-    a.final_wcol = SCAL_FIXED
-    a.final_pcol = SCAL_FIXED + p.params.final_var_weights.numel()
-    a.cam_mode = key.cam_mode
+    a.batch, a.n_iters = batch, n_iters
     a.no_rotation = int(cam.no_rotation)
     a.ss, a.acc_width, a.acc_height = cam.ss, cam.acc_width, cam.acc_height
     a.full_acc_height, a.tile_row0 = cam.full_acc_height, cam.tile_row0
@@ -262,15 +312,17 @@ def _launch(p: ChaosPlan, state, new, rec, pcolor=None,
     if rec.device.type != "cuda":
         raise ValueError(f"{LIBRARY}: the kernel runs on CUDA tensors; "
                          f"got one on {rec.device}")
-    args = chaos_args(load(), p, state, new, rec, pcolor, opacity)
+    args = chaos_args(load(p.key), p, state, new, rec, pcolor, opacity)
     stream = torch.cuda.current_stream(rec.device).cuda_stream
     _build.launch(LAUNCHES, "chaos_iterate", LIBRARY, "chaos_iterate",
-                  (_P,), stream, ctypes.addressof(args))
+                  (_P,), stream, ctypes.addressof(args),
+                  defines=key_defines(p.key))
 
 
 def variation_args(lib: ctypes.CDLL, name: str, tx, ty, w, params, aff,
                    rng, dx, dy) -> VariationArgs:
-    """The VariationArgs of `lib`'s chaos_variation: variation `name` at
+    """The VariationArgs of the generic library's chaos_variation
+    (`lib`, `load()`): variation `name` at
     the points (tx, ty) with per-point weights `w`, its knobs `params`
     and the affine `aff` (6,), its draws advancing `rng` ((n, 4) int64)
     in place, into dx and dy.  Every tensor on one device."""

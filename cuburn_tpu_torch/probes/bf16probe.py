@@ -53,6 +53,11 @@ VARIANTS = {
     "f32": (2, torch.float32, "f32 3-plane control"),
 }
 SKELETON_VISITS = 3
+# csrc kRoundRows and kRoundStages: the rows of a roundtrip tile and the
+# tiles of a block's ring in shared memory (96 KB in bf16, 192 KB in
+# f32, so one persistent block a SM)
+ROUND_ROWS = 32
+ROUND_STAGES = 4
 # the bulk copies' alignment, in bytes
 ALIGN = 16
 # ~6 ms at the H100's clocks: the head start the host gets before a
@@ -115,6 +120,26 @@ def roundtrip_reference(x: torch.Tensor, variant: str) -> torch.Tensor:
     return x.float().to(torch.bfloat16)
 
 
+def roundtrip_grid(rows: int, sms: int) -> int:
+    """The roundtrip's persistent blocks on a card of `sms` SMs: one a
+    SM, no more than there are tiles."""
+    return min(sms, -(-rows // ROUND_ROWS))
+
+
+_SMS: dict = {}
+
+
+def _sm_count(dev) -> int:
+    """The SM count of CUDA device `dev` ("cuda" is the current one),
+    asked once a device: the first ask can take milliseconds."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    n = _SMS.get(idx)
+    if n is None:
+        n = _SMS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return n
+
+
 def roundtrip(x: torch.Tensor, variant: str) -> torch.Tensor:
     """x staged through on-chip memory and back, as a new tensor.  `x`
     is a contiguous (3, rows, 128) tensor: bf16 for "multi" and
@@ -125,8 +150,9 @@ def roundtrip(x: torch.Tensor, variant: str) -> torch.Tensor:
         return roundtrip_reference(x, variant)
     out = torch.empty_like(x)
     dev = _check_cuda("bf16_roundtrip", (x, out))
-    _launch("bf16_roundtrip", (_P, _P, _I64, _INT), dev, x.data_ptr(),
-            out.data_ptr(), x.shape[1], VARIANTS[variant][0])
+    _launch("bf16_roundtrip", (_P, _P, _I64, _INT, _INT), dev, x.data_ptr(),
+            out.data_ptr(), x.shape[1], VARIANTS[variant][0],
+            roundtrip_grid(x.shape[1], _sm_count(dev)))
     return out
 
 
@@ -234,6 +260,7 @@ def _call(fn, device):
     if device.type != "cuda":
         return fn(), fields
     _build.load(LIBRARY)
+    _sm_count(device)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(_SLEEP_CYCLES)

@@ -472,8 +472,6 @@ class Renderer:
     def __init__(self, genome: Genome, profile: RenderProfile,
                  device: torch.device | str | None = None):
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            chaos.load()    # the kernel's build stays out of iterate_s
         self.genome = genome
         self._packed_genome = None      # built at the first blurred frame
         self.profile = profile
@@ -485,6 +483,9 @@ class Renderer:
             raise NotImplementedError(
                 f"variations not ported yet: {', '.join(missing)} "
                 "(ROADMAP.md queue A)")
+        if self.device.type == "cuda":
+            # the key's chaos kernel: its build stays out of iterate_s
+            chaos.load(self.key)
         no_rot = genome.rotate.is_constant and genome.rotate(0.0) == 0.0
         self._static_de_r = _spline_range_max(
             genome.estimator_radius, genome.time_range) * profile.ss

@@ -153,6 +153,7 @@ def main(argv=None) -> int:
 
     from cuburn_tpu_torch.device import resolve_device
     from cuburn_tpu_torch.models import full_feature
+    from cuburn_tpu_torch.ops import chaos
     from cuburn_tpu_torch.ops.camera import CameraSpec
     from cuburn_tpu_torch.ops.iterate import xform_cdf_rows
     from cuburn_tpu_torch.params import params_from_genome
@@ -164,6 +165,8 @@ def main(argv=None) -> int:
         raise SystemExit(f"cuburn-tpu-torch-retune: {e}")
     g = full_feature()
     key = g.structure_key()
+    if device.type == "cuda":
+        chaos.load(key)     # the key's kernel is built before any race
     params = params_from_genome(g.eval_at(0.0), device)
     cdf = xform_cdf_rows(params)
     # sweep sizes: the env overrides let the tool run end to end at toy

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the tiled sort and the flushes of two checkouts of the port on
-one NVIDIA GPU, in turns.
+"""Time the tiled sort, the flushes, the chaos game and the bf16 round
+trip of two checkouts of the port on one NVIDIA GPU, in turns.
 
     python3 kernel_ab.py OLD_DIR NEW_DIR [--rounds R]
 
@@ -50,7 +50,20 @@ merged_kernel_first, merged_kernel_real, rgb16_first, rgb16_real,
 rgb16_kernel_first, rgb16_kernel_real.  Every packed, merged and split
 flush is checked against its plain version first: density bit-exact at
 weight 1.0, channels within 1e-5 of the bin's density, the split
-flush's rgb within one bf16 ulp.
+flush's rgb within one bf16 ulp.  Then:
+
+  chaos_chunk           one chaos_iterate launch of the checkout's own
+                        kernel: a chunk of full_feature at 1080p (2^17
+                        lanes x 32 steps) from trajectories two chunks
+                        past the fuse (chip_smoke.chaos_chunk, seed 1),
+                        checked bit-exact to its eager loop (RNG words,
+                        selected xforms, positions and every record)
+  roundtrip_bf16,       probes/bf16probe.roundtrip, "multi",
+  roundtrip_per_plane,  "per_plane" and "f32", at the 1080p-ss2 split
+  roundtrip_f32         histogram's 67,584 rows (chip_smoke phase 14b),
+                        checked bit-equal to the input
+  copy_bf16, copy_f32   out.copy_(x) of the same arrays, the identity
+                        as one PyTorch call
 
 Prints one JSON line per process, then the card's nvidia-smi line and a
 last JSON line with, for each timing, the values of OLD's and NEW's
@@ -272,7 +285,45 @@ def worker(tree: str) -> dict:
                                    pal, n_bins, r_bits, 1.0))
         fns.update(rgb16_timings(torch, cs, flush, tree, tag, rec, pal,
                                  n_bins, r_bits, 1.0))
+    fns.update(chaos_and_probe(torch, cs, tree, gen))
     return {"tree": tree, **cs.medians(torch, fns)}
+
+
+def chaos_and_probe(torch, cs, tree, gen):
+    """The chaos_chunk, roundtrip_* and copy_* calls of the imported
+    checkout, each checked first."""
+    from cuburn_tpu_torch.models import full_feature
+    from cuburn_tpu_torch.ops import chaos
+    from cuburn_tpu_torch.ops import iterate as tit
+    from cuburn_tpu_torch.probes import bf16probe as bp
+    from cuburn_tpu_torch.profile import get_profile
+    from cuburn_tpu_torch.render import Renderer
+    dev = torch.device("cuda")
+    r = Renderer(full_feature(), get_profile("1080p", quality=100))
+    plan, state = cs.chaos_chunk(torch, chaos, tit, r, seed=1)
+    rec = torch.empty((cs.CHAOS_STEPS, cs.CHAOS_BATCH), dtype=torch.int64,
+                      device=dev)
+    ref = torch.empty_like(rec)
+    got = tit.iterate_records(plan, state, rec)
+    want = tit.iterate_records_reference(plan, state, ref)
+    cs.check(torch.equal(rec, ref) and all(
+        torch.equal(getattr(got, f), getattr(want, f))
+        for f in ("x", "y", "color", "last_xf", "age", "rng")),
+        f"{tree}: the chaos chunk is not bit-exact to its eager loop")
+    fns = {"chaos_chunk_ms": lambda: tit.iterate_records(plan, state, rec)}
+    rows = -(-(-(-(ACC_WIDTH * ACC_HEIGHT + 1) // 128)) // bp.BR) * bp.BR
+    for variant, tag in (("multi", "bf16"), ("per_plane", "per_plane"),
+                         ("f32", "f32")):
+        x = torch.rand((3, rows, 128), generator=gen).to(
+            bp.VARIANTS[variant][1]).to(dev)
+        cs.check(cs.same_bits(torch, bp.roundtrip(x, variant), x),
+                 f"{tree}: the {variant} round trip is not the identity")
+        fns[f"roundtrip_{tag}_ms"] = \
+            lambda x=x, variant=variant: bp.roundtrip(x, variant)
+        if variant != "per_plane":
+            out = torch.empty_like(x)
+            fns[f"copy_{tag}_ms"] = lambda x=x, out=out: out.copy_(x)
+    return fns
 
 
 def main(argv=None) -> int:

@@ -384,6 +384,22 @@ def test_schedule_on_the_card_is_refused():
         tp.schedule(perm, np.zeros(1, np.int32), NB)
 
 
+@pytest.mark.parametrize("rows", [1, 31, 32, 1024, 50_001, 67_584])
+def test_roundtrip_grid_is_one_block_a_sm(rows):
+    """The roundtrip's persistent grid on a 132-SM card: one block a SM,
+    or one a tile where there are fewer tiles, so that the blocks' walks
+    (block b takes tiles b, b + grid, ...) take every tile once; a
+    block's ring of tiles fits a SM's shared memory in either type."""
+    sms, tiles = 132, -(-rows // tp.ROUND_ROWS)
+    grid = tp.roundtrip_grid(rows, sms)
+    assert grid == min(tiles, sms)
+    assert sorted(t for b in range(grid) for t in range(b, tiles, grid)) \
+        == list(range(tiles))
+    for _code, dtype, _name in tp.VARIANTS.values():
+        ring = tp.ROUND_STAGES * 3 * tp.ROUND_ROWS * 128 * dtype.itemsize
+        assert ring <= 227 * 1024
+
+
 def test_main_without_a_gpu_raises(monkeypatch):
     """No CPU fallback: the probe runs on the card unless --cpu."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -1,12 +1,14 @@
 """The chaos-game kernel's lane code (csrc/chaos_iterate.cu) on the CPU.
 
 The kernel's source also builds as host C++ (`c++ -O2
--ffp-contract=off -DCHAOS_HOST`, no `__global__` function), into a
-test-only library whose C entries run the same lane code in plain
-loops.  These tests hold that build against the port's plain version
-(ops/iterate.py's eager step) and the JAX package, on inputs made from
-a numpy seed.  They skip where the host has no C++ compiler.
-Contracts:
+-ffp-contract=off -DCHAOS_HOST`, no `__global__` function), into
+test-only libraries whose C entries run the same lane code in plain
+loops: one a structure key, with the key's -D definitions
+(ops/chaos.key_defines), as the card's libraries are built, and the
+generic one of chaos_variation.  These tests hold those builds against
+the port's plain version (ops/iterate.py's eager step) and the JAX
+package, on inputs made from a numpy seed.  They skip where the host
+has no C++ compiler.  Contracts:
 
 - every variation of the registry, alone: (dx, dy) within the tolerance
   of test_torch_ops.test_variation_matches_jax, |host - jax64| <=
@@ -22,9 +24,17 @@ Contracts:
   equal to 8 one-step launches; from the same state, step 1's records
   equal to the plain version's and to JAX's iterate_step's in >= 99.9%
   of lanes, positions within rtol 1e-4, atol 1e-5;
+- every variation of the registry inside a key's union, 12-13 a key
+  (test_torch_cuda.VARIATION_GROUPS): after 8 steps of one launch the
+  RNG words and the selected xforms exact against the plain version,
+  positions finite where its are; step 1's records equal in >= 99.9% of
+  lanes;
 - a 64x64 render through the host build: TV distance of its normalised
   density histogram to the plain path's under 2x the plain path's
-  two-seed floor (the chaos game turns ulps into other trajectories).
+  two-seed floor (the chaos game turns ulps into other trajectories);
+- a key's library path: another for another key, the same for two
+  genomes with equal keys; a key whose build fails raises with the
+  compiler's output and nothing falls back.
 """
 
 import ctypes
@@ -49,6 +59,7 @@ from cuburn_tpu.ops import camera as jcam  # noqa: E402
 from cuburn_tpu.ops import iterate as jit_  # noqa: E402
 from cuburn_tpu_torch import params as tparams  # noqa: E402
 from cuburn_tpu_torch import render as trender  # noqa: E402
+from cuburn_tpu_torch.genome.spline import Spline as TSpline  # noqa: E402
 from cuburn_tpu_torch.kernels import build  # noqa: E402
 from cuburn_tpu_torch.models.gallery import get_genome  # noqa: E402
 from cuburn_tpu_torch.ops import camera as tcam  # noqa: E402
@@ -57,6 +68,8 @@ from cuburn_tpu_torch.ops import iterate as tit  # noqa: E402
 from cuburn_tpu_torch.ops import rng as trng  # noqa: E402
 from cuburn_tpu_torch.ops import variations as tvar  # noqa: E402
 from cuburn_tpu_torch.profile import RenderProfile  # noqa: E402
+from test_torch_cuda import (VARIATION_GROUPS,  # noqa: E402
+                             variation_group_genome, variation_group_plan)
 from test_torch_ops import (_AFFINE, _COND, _ULP8,  # noqa: E402
                             _jax64_rounding_spread, _points, _run_jax64,
                             _u32_state)
@@ -76,27 +89,43 @@ def _no_tune_record(tmp_path_factory):
         yield
 
 
+HOST_FLAGS = ("-O2", "-ffp-contract=off", "-std=c++17", "-DCHAOS_HOST",
+              "-shared", "-fPIC", "-x", "c++")
+
+
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    """csrc/chaos_iterate.cu built as host C++ into a test library."""
+    """csrc/chaos_iterate.cu built as host C++ into test libraries, one
+    a structure key, built at its first use and kept for the module:
+    host_lib(key) is the key's (its chaos_iterate), host_lib() the
+    generic one (its chaos_variation)."""
     cxx = shutil.which("c++")
     if cxx is None:
         pytest.skip("no C++ compiler (c++) on this host")
-    out = tmp_path_factory.mktemp("chaos") / "libchaos_host.so"
-    subprocess.run([cxx, "-O2", "-ffp-contract=off", "-std=c++17",
-                    "-DCHAOS_HOST", "-shared", "-fPIC", "-x", "c++",
-                    str(build.CSRC_DIR / "chaos_iterate.cu"), "-o",
-                    str(out)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(out))
-    for entry in (lib.chaos_iterate, lib.chaos_variation):
-        entry.argtypes = (ctypes.c_void_p, ctypes.c_void_p)
-        entry.restype = ctypes.c_int
-    return lib
+    out_dir = tmp_path_factory.mktemp("chaos")
+    libs = {}
+
+    def lib_for(key=None):
+        defines = chaos.key_defines(key) if key is not None else ()
+        lib = libs.get(defines)
+        if lib is None:
+            out = out_dir / f"libchaos_host_{len(libs)}.so"
+            subprocess.run([cxx, *HOST_FLAGS, *(f"-D{d}" for d in defines),
+                            str(build.CSRC_DIR / "chaos_iterate.cu"), "-o",
+                            str(out)], check=True, capture_output=True)
+            lib = ctypes.CDLL(str(out))
+            entry = lib.chaos_iterate if defines else lib.chaos_variation
+            entry.argtypes = (ctypes.c_void_p, ctypes.c_void_p)
+            entry.restype = ctypes.c_int
+            libs[defines] = lib
+        return lib
+    return lib_for
 
 
-def host_records(lib, plan, state, n_iters, unpacked=False):
-    """The host build's chaos_iterate: (new state, records) or, unpacked,
-    (new state, addr, pcolor, opacity)."""
+def host_records(host_lib, plan, state, n_iters, unpacked=False):
+    """The host build of plan.key's chaos_iterate: (new state, records)
+    or, unpacked, (new state, addr, pcolor, opacity)."""
+    lib = host_lib(plan.key)
     new = chaos.empty_state(state)
     if unpacked:
         outs = chaos.full_outputs(state, n_iters)
@@ -109,7 +138,8 @@ def host_records(lib, plan, state, n_iters, unpacked=False):
 
 # -- (a) every variation alone ----------------------------------------------
 
-def _host_variation(lib, name, tx, ty, state, params, w):
+def _host_variation(host_lib, name, tx, ty, state, params, w):
+    lib = host_lib()
     n = tx.shape[0]
     f32 = torch.float32
     vals = [params[a] for a, _d in VARIATION_PARAMS[name]] or [0.0]
@@ -137,7 +167,9 @@ def _plain_variation(name, tx, ty, state, params, w):
 
 
 def test_registry_has_every_variation(host_lib):
-    assert set(chaos.variation_ids(host_lib)) == set(tvar.VARIATION_IMPLS)
+    assert set(chaos.variation_ids(host_lib())) == set(tvar.VARIATION_IMPLS)
+    assert set().union(*VARIATION_GROUPS) == set(tvar.VARIATION_IMPLS)
+    assert not hasattr(host_lib(), "chaos_iterate")
 
 
 @pytest.mark.parametrize("name", sorted(tvar.VARIATION_IMPLS))
@@ -392,3 +424,67 @@ def test_launch_refuses_a_cpu_tensor(monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensors"):
         chaos.launch_full(plan, st, 2)
     assert chaos.LAUNCHES == before
+
+
+# -- (d) every variation inside a key's union ---------------------------------
+
+@pytest.mark.parametrize("group", range(len(VARIATION_GROUPS)))
+def test_variation_group_matches_plain(host_lib, group):
+    """K steps of a key whose union is 12-13 variations of the registry,
+    one launch of its specialised host build against the plain version:
+    RNG words and selected xforms exact, positions finite where the
+    plain version's are, step 1's records equal in >= 99.9% of lanes."""
+    plan, st = variation_group_plan(group, "cpu", B)
+    assert plan.key.variations == VARIATION_GROUPS[group]
+    host, hrec = host_records(host_lib, plan, st, K)
+    prec = torch.empty_like(hrec)
+    plain = tit.iterate_records_reference(plan, st, prec)
+    np.testing.assert_array_equal(host.rng.numpy(), plain.rng.numpy())
+    np.testing.assert_array_equal(host.last_xf.numpy(),
+                                  plain.last_xf.numpy())
+    for f in ("x", "y", "color"):
+        np.testing.assert_array_equal(np.isfinite(getattr(host, f).numpy()),
+                                      np.isfinite(getattr(plain, f).numpy()))
+    agree = (hrec[0] == prec[0]).double().mean()
+    plotted = ((hrec[0] >> plan.tot_bits) != plan.cam.junk_bin).sum()
+    assert float(agree) >= 0.999 and int(plotted) > B // 8
+
+
+def test_library_path_follows_the_key():
+    """One library a structure key: another key builds another library,
+    a genome with other values and the same key shares it, and the
+    generic library is none of them."""
+    ff = get_genome("full_feature")
+    same = get_genome("full_feature")
+    same.xforms[1].opacity = TSpline(0.5)
+    same.xforms[0].weight = TSpline(0.3)
+    assert same.structure_key() == ff.structure_key()
+    keys = [ff.structure_key(), get_genome("sierpinski").structure_key(),
+            get_genome("tilted").structure_key(),
+            *(variation_group_genome(i).structure_key() for i in range(2))]
+    paths = [chaos.library_path(k) for k in keys]
+    assert len(set(paths)) == len(paths)
+    assert chaos.library_path(same.structure_key()) == paths[0]
+    assert chaos.library_path() not in paths
+    assert all(p.parent == build.BUILD_DIR and
+               p.name.startswith("libchaos_iterate-") for p in paths)
+
+
+def test_failed_key_build_raises_without_fallback(tmp_path, monkeypatch):
+    """A key whose nvcc build fails raises with the compiler's output; no
+    library is loaded for it and the generic one is not touched."""
+    fake = tmp_path / "nvcc"
+    log = tmp_path / "argv"
+    fake.write_text(f"#!/bin/sh\necho \"$@\" > {log}\n"
+                    "echo 'chaos_iterate.cu: error: no room' >&2\nexit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "find_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_LOADED", {})
+    key = get_genome("full_feature").structure_key()
+    with pytest.raises(RuntimeError, match="no room"):
+        chaos.load(key)
+    argv = log.read_text()
+    assert all(f"-D{d}" in argv for d in chaos.key_defines(key))
+    assert build._LOADED == {}
+    assert not list((tmp_path / "build").glob("*.so"))

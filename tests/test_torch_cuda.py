@@ -24,8 +24,11 @@ chaos-game kernel against the eager step loop, its plain version: every
 variation alone with its RNG words exact and (dx, dy) within rtol 1e-4,
 atol 1e-5 in >= 99.9% of points; chunks of the genomes of
 test_torch_chaos.py with the RNG words and the selected xforms exact
-at every step, step 1's records equal in >= 99.9% of lanes; one launch
-a chunk on every render path; no fallback when it cannot be built.
+at every step, step 1's records equal in >= 99.9% of lanes; every
+variation inside a key's union (VARIATION_GROUPS) bit-exact to the
+eager loop over 32 steps; one launch a chunk on every render path, the
+key's library loaded by the Renderer; no fallback when it cannot be
+built.
 The bf16 probe's kernels (csrc/bf16_probe.cu) bit-equal to their plain
 versions, one launch a call, repeated so that a missing proxy fence
 shows; a schedule that revisits a block refused before any launch.
@@ -971,6 +974,51 @@ def test_chaos_variation_matches_plain_on_the_card(cuda, name):
                 assert float(close.double().mean()) >= 0.999, (name, w)
 
 
+# the registry in 8 keys of 12-13 variations (every 8th name in sorted
+# order): each variation runs inside a specialised chaos_iterate, here
+# on the card and in test_torch_chaos.py through the host build
+VARIATION_GROUPS = tuple(tuple(sorted(tvar.VARIATION_IMPLS))[i::8]
+                         for i in range(8))
+
+
+def variation_group_genome(i):
+    """A genome whose key's union is VARIATION_GROUPS[i]: two xforms with
+    every variation of the group at seeded weights, the first at default
+    knobs and the second at bumped ones, and a final xform with the
+    group's first three."""
+    from cuburn_tpu_torch.genome.specs import Genome, XForm
+    from cuburn_tpu_torch.genome.variations import PARAM_DEFAULTS
+    group = VARIATION_GROUPS[i]
+    rs = np.random.RandomState(100 + i)
+    attrs = [a for v in group for a, _d in VARIATION_PARAMS[v]]
+    bumped = {a: PARAM_DEFAULTS[a] * 1.3 + 0.4 for a in attrs}
+    xforms = [XForm(weight=wt, color=c,
+                    affine=(0.55, 0.1, 0.2 * sgn, -0.1, 0.5, -0.15 * sgn),
+                    vars={v: float(w) for v, w in zip(
+                        group, rs.uniform(0.02, 0.25, len(group)))},
+                    params=params)
+              for wt, c, sgn, params in ((0.6, 0.1, 1.0, {}),
+                                         (0.4, 0.9, -1.0, bumped))]
+    final = XForm(color=0.5, vars={v: 0.5 for v in group[:3]})
+    return Genome(xforms=xforms, final_xform=final, name=f"group{i}",
+                  center=(0.0, 0.0), scale=16.0, size=(64, 48))
+
+
+def variation_group_plan(i, device, batch):
+    """(plan, state) of a 64x48 ss-2 chunk of variation_group_genome(i)
+    from seeded trajectories past the fuse."""
+    g = variation_group_genome(i)
+    key = g.structure_key()
+    cam = tcam.CameraSpec(64, 48, 2, gutter=3)
+    p = tparams.params_from_genome(g.eval_at(0.0), device)
+    st = tit.init_state(torch.Generator().manual_seed(5 + i), batch, device)
+    st = dataclasses.replace(st, age=st.age + 40)     # past the fuse
+    cbits, tot_bits = tit.record_bits(key, cam, "pallas_win", 0)
+    plan = chaos.plan(key, cam, p, tit.xform_cdf_rows(p),
+                      p.ppu * float(64 / g.size[0]), 20, cbits, tot_bits)
+    return plan, st
+
+
 def _chaos_opacity():
     g = full_feature()
     g.xforms[1].opacity = Spline(0.5)
@@ -1016,8 +1064,29 @@ def _chaos_setup(case, device, batch=1 << 14):
     return plan, st
 
 
+@pytest.fixture(scope="module")
+def chaos_keys_built():
+    """The chaos library of every structure key these tests render or
+    launch, built before the first of them, one nvcc each, all started
+    together (as chip_smoke.py's phase 2 does)."""
+    import concurrent.futures
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    genomes = [full_feature(), sierpinski(), _spark(), *(c[0]() for c in
+                                           CHAOS_CASES.values()),
+               *(variation_group_genome(i)
+                 for i in range(len(VARIATION_GROUPS)))]
+    keys = {g.structure_key() for g in genomes}
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        paths = list(pool.map(lambda k: build.build(
+            chaos.LIBRARY, chaos.key_defines(k)), keys))
+    return dict(zip(keys, paths))
+
+
 @pytest.mark.parametrize("case", sorted(CHAOS_CASES))
-def test_chaos_chunk_matches_plain_on_the_card(cuda, case):
+def test_chaos_chunk_matches_plain_on_the_card(cuda, chaos_keys_built,
+                                               case):
     """8 steps one launch at a time against the eager loop: RNG words
     and selected xforms exact at every step; from the same state, step
     1's records in >= 99.9% of lanes and positions within rtol 1e-4,
@@ -1047,6 +1116,32 @@ def test_chaos_chunk_matches_plain_on_the_card(cuda, case):
     assert torch.equal(whole, torch.stack(steps))
     for f in ("x", "y", "color", "last_xf", "age", "rng"):
         assert torch.equal(getattr(ws, f), getattr(kern, f))
+
+
+@pytest.mark.parametrize("group", range(len(VARIATION_GROUPS)))
+def test_chaos_variation_group_matches_plain_on_the_card(cuda,
+                                                        chaos_keys_built,
+                                                        group):
+    """Every variation inside a key's union (12-13 a key), 32 steps in
+    one launch of the key's specialised kernel against the eager loop:
+    bit-exact, as on the main path (RNG words, selected xforms and
+    positions after 32 steps, every record, step 1's positions)."""
+    plan, st = variation_group_plan(group, cuda, 1 << 14)
+    before = chaos.LAUNCHES["chaos_iterate"]
+    rk = torch.empty((32, st.x.shape[0]), dtype=torch.int64, device=cuda)
+    kern = tit.iterate_records(plan, st, rk)
+    assert chaos.LAUNCHES["chaos_iterate"] == before + 1
+    rp = torch.empty_like(rk)
+    plain = tit.iterate_records_reference(plan, st, rp)
+    for f in ("rng", "last_xf", "age", "x", "y", "color"):
+        assert torch.equal(getattr(kern, f), getattr(plain, f)), f
+    assert torch.equal(rk, rp)
+    one = torch.empty((1, st.x.shape[0]), dtype=torch.int64, device=cuda)
+    k1 = tit.iterate_records(plan, st, one)
+    p1 = tit.iterate_records_reference(plan, st, torch.empty_like(one))
+    assert torch.equal(k1.x, p1.x) and torch.equal(k1.y, p1.y)
+    assert int(((rk[0] >> plan.tot_bits) != plan.cam.junk_bin).sum()) \
+        > st.x.shape[0] // 8
 
 
 def test_chaos_unpacked_chunk_matches_plain_on_the_card(cuda):
@@ -1082,6 +1177,8 @@ def test_every_render_path_launches_the_chaos_game(cuda, monkeypatch, path):
                          **blur)
     g = _spark() if path == "blurred" else full_feature()
     r = trender.Renderer(g, prof)
+    # the key's library is loaded before any iterate_s
+    assert (chaos.LIBRARY, chaos.key_defines(r.key)) in build._LOADED
     chaos.LAUNCHES["chaos_iterate"] = 0
     if path == "striped":
         # stats count every stripe's iterations: each replays the chunks
@@ -1095,11 +1192,13 @@ def test_every_render_path_launches_the_chaos_game(cuda, monkeypatch, path):
 
 
 def test_chaos_raises_when_build_fails(cuda, monkeypatch):
-    """No fallback: a chaos kernel that cannot be built makes the CUDA
-    wrappers raise instead of running the eager loop."""
+    """No fallback: a chaos kernel that cannot be built for the plan's
+    key makes the CUDA wrappers and the Renderer raise instead of running
+    the eager loop or another library."""
     plan, st = _chaos_setup("full_feature", cuda, batch=1024)
 
-    def broken(name):
+    def broken(name, defines=()):
+        assert defines == chaos.key_defines(plan.key)
         raise RuntimeError(f"nvcc failed building {name}.cu")
     monkeypatch.setattr(build, "load", broken)
     before = chaos.LAUNCHES["chaos_iterate"]
@@ -1121,12 +1220,15 @@ def _same_bits(a, b):
         torch.equal(a.view(view), b.view(view))
 
 
-@pytest.mark.parametrize("rows", [bf16probe.NB * bf16probe.BR, 320, 1000])
+@pytest.mark.parametrize("rows", [bf16probe.NB * bf16probe.BR, 320, 1000,
+                                  50_001])
 @pytest.mark.parametrize("variant", sorted(bf16probe.VARIANTS))
 def test_bf16_roundtrip_kernel_matches_plain_version(cuda, variant, rows):
-    """The probe's size, a multiple of the kernel's 64-row tile that is
-    not one of BR (320) and a ragged last tile (1000): bit-equal to the
-    plain version and to the input, 10 times, one launch a call."""
+    """The probe's size, a multiple of the kernel's tile that is not one
+    of BR (320), a ragged last tile (1000) and enough tiles that every
+    persistent block walks its ring of stages more than once (50,001):
+    bit-equal to the plain version and to the input, 10 times, one
+    launch a call."""
     dtype = bf16probe.VARIANTS[variant][1]
     gen = torch.Generator().manual_seed(rows)
     x = torch.rand((3, rows, 128), generator=gen).to(dtype).to(cuda)
