@@ -192,6 +192,24 @@ CUDA toolkit.  Phases, each printed on its own line:
               from the bytes; for each roundtrip variant its persistent
               grid, its share of the bound and out.copy_'s, and its
               device ms over out.copy_'s.
+ 15. bench    the system's benchmark and validation tools
+              (cuburn_tpu_torch/bench/) as a user runs them.  (a) The
+              headline, `python -m cuburn_tpu_torch.bench`, in its own
+              process: one JSON line with bench.py's schema, the card's
+              name and power limit, scatter and pallas_win equal in
+              every bin's density and in mass, the pallas_win run's
+              launches one chaos_iterate and one win_flush a chunk and
+              the sort's passes a flush (the scatter run's one chaos
+              launch a chunk), the 1080p q1000 fields present.  (b) The
+              configs suite: BASELINE.md's five configurations at their
+              binding sizes, one process each, five records, exit 0.
+              (c) In this process at their defaults, the launches
+              counted: parity (ok: scatter and pallas_win on the card
+              within the CPU's two-seed TV floor), tileddiff (the
+              8,633,536-bin geometry past L2, density equal in every
+              bin), sortbench (every row within its bound) and
+              breakdown.  Every JSON line of each tool on a line of its
+              own.
 
 Every render phase counts the chaos game's launches, one a chunk, and
 no launch of the probe's kernels; no phase loads the generic chaos
@@ -199,7 +217,8 @@ library, which has no chaos game.
 Every phase but 12a runs with CUBURN_TUNE_FILE pointing at a file that
 does not exist, so no tune record moves the launch counts.  Then one
 JSON line describing each kernel (the probe's with the launches of its
-own entry point and 0 on every render path, its times from phase 14b),
+own entry point and 0 on every render path, its times from phase 14b;
+`launches_bench` the headline's timed runs and phase 15c's tools),
 the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any
 failed check exits non-zero before those lines.  Without CUDA it exits
 non-zero at once.
@@ -238,7 +257,8 @@ KERNELS = {
 }
 # the genomes the script renders: phase 2 builds the chaos game's
 # library for the structure key of each with the other libraries
-CHAOS_GENOMES = ("full_feature", "sierpinski", "animated_spark")
+CHAOS_GENOMES = ("full_feature", "sierpinski", "animated_spark",
+                 "classic_swirl")
 # the probe's kernels (phase 14): launched by no render path
 PROBE_KERNELS = ("bf16_roundtrip", "rgb16_skeleton")
 # the backend whose render drives each flush kernel
@@ -2555,6 +2575,124 @@ def phase_probe(torch, n_bins, kind):
              "rgb16_skeleton": skel_err})
 
 
+# -- phase 15: the bench tools (cuburn_tpu_torch/bench/) -------------------
+
+# BASELINE.md's five configurations at their binding sizes: genome, size,
+# ss, quality, temporal samples
+BENCH_CONFIGS = {1: ("sierpinski", "512x512", 1, 4, 1),
+                 2: ("classic_swirl", "1280x720", 1, 500, 1),
+                 3: ("full_feature", "1920x1080", 1, 1000, 1),
+                 4: ("classic_swirl", "1920x1080", 2, 2000, 1),
+                 5: ("animated_spark", "1280x720", 1, 200, 4)}
+# the bench tools phase 15 runs in this process, at their defaults
+BENCH_TOOLS = ("parity", "tileddiff", "sortbench", "breakdown")
+
+
+def bench_subprocess(module, timeout):
+    """The JSON lines of `python -m <module>` run from the checkout;
+    every line of its standard output is one, and it exits 0."""
+    out = subprocess.run([sys.executable, "-m", module], cwd=REPO,
+                         capture_output=True, text=True, timeout=timeout)
+    check(out.returncode == 0,
+          f"{module} exited {out.returncode}: {out.stderr[-3000:]}")
+    return [json.loads(ln) for ln in out.stdout.splitlines()]
+
+
+def bench_tool(flush, tiled_sort, name):
+    """One bench tool's entry point in this process, as `python -m
+    cuburn_tpu_torch.bench.<name>` runs it: (its JSON lines, the
+    launches it made).  It exits 0 and launches none of the probe's
+    kernels."""
+    import importlib
+    main = importlib.import_module(f"cuburn_tpu_torch.bench.{name}").main
+    reset_launches(flush, tiled_sort)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main([])
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    launches = launches_now(flush, tiled_sort)
+    for ln in lines:
+        phase(15, "bench", tool=name, line=ln)
+    check(rc == 0, f"bench.{name} exited {rc}")
+    check(not any(launches[k] for k in PROBE_KERNELS),
+          f"bench.{name} launched the probe's kernels: {launches}")
+    return lines, launches
+
+
+def phase_bench(torch, flush, tiled_sort, kind):
+    """The system's benchmark and validation tools (phase 15).
+    Returns every kernel's launches over the headline's timed runs and
+    the four tools run in this process."""
+    from cuburn_tpu_torch.bench.headline import KEYS_1080P, sizes
+    torch.cuda.empty_cache()
+    total = dict.fromkeys(KERNELS, 0)
+
+    # (a) the headline, as `python -m cuburn_tpu_torch.bench` runs it
+    t0 = time.perf_counter()
+    lines = bench_subprocess("cuburn_tpu_torch.bench", 600)
+    check(len(lines) == 1, f"the headline printed {len(lines)} lines")
+    head = lines[0]
+    ex = head["extra"]
+    phase(15, "bench", tool="headline", seconds=round(
+        time.perf_counter() - t0, 3), line=head)
+    check(head["metric"] == "ifs_samples_per_sec_per_chip"
+          and head["value"] > 0 and ex["device"].startswith(kind),
+          f"the headline's line: {head}")
+    check(ex["mass_parity"] == 1.0 and ex["max_bin_err_density"] == 0.0,
+          f"the headline's differential: {ex['mass_parity']}, "
+          f"{ex['max_bin_err_density']}")
+    check(all(ex[k] is not None for k in KEYS_1080P)
+          and ex["backend_1080p"] == "pallas_win",
+          f"the headline's 1080p run: {[ex[k] for k in KEYS_1080P]}")
+    n, batch = ex["chunks"], sizes(False)[1]
+    passes = len(tiled_sort.bitonic_schedule(batch * ex["iters_per_chunk"]))
+    want = {"pallas_win": {"chaos_iterate": n, "win_flush": n,
+                           "bitonic_sort": n * passes},
+            "scatter": {"chaos_iterate": n}}
+    check(ex["launches"] == want,
+          f"the headline's launches {ex['launches']}, expected {want}")
+    for got in ex["launches"].values():
+        for k, v in got.items():
+            total[k] += v
+
+    # (b) the five configurations at their binding sizes
+    t0 = time.perf_counter()
+    lines = bench_subprocess("cuburn_tpu_torch.bench.configs", 900)
+    recs = {ln["config"]: ln for ln in lines if "samples_per_sec" in ln}
+    for ln in lines:
+        phase(15, "bench", tool="configs", line=ln)
+    got = {i: (r["genome"], r["size"], r["ss"], r["quality"],
+               r["temporal_samples"]) for i, r in recs.items()}
+    check(got == BENCH_CONFIGS and len(lines) == 6
+          and lines[-1]["failed"] == [],
+          f"configs: {got} against {BENCH_CONFIGS}; {lines[-1]}")
+    check(all(r["plotted_samples"] > 0 and r["backend"] == "pallas_win"
+              for r in recs.values()), f"configs: {recs}")
+    phase(15, "bench", tool="configs",
+          seconds=round(time.perf_counter() - t0, 3))
+
+    # (c) the tools in this process
+    lines = {}
+    for name in BENCH_TOOLS:
+        lines[name], launches = bench_tool(flush, tiled_sort, name)
+        for k in total:
+            total[k] += launches[k]
+    verdict = lines["parity"][-1]["card_cpu_parity"]
+    check(verdict["ok"], f"parity: {verdict}")
+    head, *_backends, out = lines["tileddiff"]
+    check(head["tiled"] and head["n_bins"] == 3896 * 2216 and out["ok"]
+          and out["max_bin_err_density"] == 0.0, f"tileddiff: {head} {out}")
+    rows = [ln for ln in lines["sortbench"] if "ok" in ln]
+    check(len(rows) == 11 and all(r["ok"] for r in rows)
+          and lines["sortbench"][-1] == {"sortbench_ok": True},
+          f"sortbench: {rows}")
+    check([ln.get("row") for ln in lines["breakdown"][1:]]
+          == ["iterate (discard)", "iterate + pack", "full (scatter)",
+              "full (pallas_win)"], f"breakdown: {lines['breakdown']}")
+    torch.cuda.empty_cache()
+    return total
+
+
 def build_jobs(chaos, get_genome):
     """{label: (library, -D definitions)} of every library the script
     launches: each csrc/*.cu of KERNELS, the chaos game's once for the
@@ -2705,6 +2843,7 @@ def main(argv=None) -> int:
     for got, of_probe in zip((launches, times, errs),
                              phase_probe(torch, n_bins, kind)):
         got.update(of_probe)
+    bench_launches = phase_bench(torch, flush, tiled_sort, kind)
 
     check((chaos.LIBRARY, ()) not in build._LOADED,
           "the generic chaos library (no chaos game) was loaded")
@@ -2715,6 +2854,7 @@ def main(argv=None) -> int:
         "launches_partitioned": part_launches[name],
         "launches_sharded": sharded_launches[name],
         "launches_traced": traced_launches[name],
+        "launches_bench": bench_launches[name],
         "max_abs_err": errs[name], "ms": times[name]["ms"],
         "device_ms": times[name]["device_ms"],
         "plain_ms": times[name]["plain_ms"],

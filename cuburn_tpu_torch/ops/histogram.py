@@ -8,10 +8,10 @@ the histogram is always f32.
 
 The registry holds the XLA backends of the JAX package, as plain
 PyTorch: `scatter` (index_add_), `scatter_sorted` (sort by address,
-then index_add_) and `sortcum` (sort, prefix sums, run-end placement,
-running max, difference: no scatter-add at all).  None is a kernel.
-Every backend updates `hist` in place and returns it.  The flushes of
-packed records (`pallas`, `pallas_merged`, `pallas_win`,
+then index_add_) and `sortcum` (sort, float64 prefix sums, run-end
+placement, running max, difference: no scatter-add at all).  None is a
+kernel.  Every backend updates `hist` in place and returns it.  The
+flushes of packed records (`pallas`, `pallas_merged`, `pallas_win`,
 `pallas_rgb16`) live in `ops/flush.py`.
 """
 
@@ -56,21 +56,26 @@ def accumulate_sortcum(hist, addr, rgba):
     """Scatter-free accumulation: sort by address, per-channel prefix
     sums, the prefix sum at each run end copied to its bin, gaps filled
     with a running maximum (prefix sums of nonnegative mass are
-    monotone), then adjacent bins differenced.  Error is the prefix
-    sums' rounding, O(ulp(flush mass)) per bin."""
+    monotone), then adjacent bins differenced.  The prefix sums and what
+    follows them run in float64, and a bin's sum is rounded to float32
+    once, when it is added: in float32 a bin's error is the prefix sums'
+    rounding, which CUDA's scan makes up to 37 ulps of the flush's mass
+    (4.70 at 2^21 records of mass 1.05e6 per channel on an H100, 0.12 on
+    the CPU)."""
     n_bins_p1 = hist.shape[0]
     sa, rows = _sort_by_addr(addr, rgba)
-    csum = torch.cumsum(rows, dim=0)
+    csum = torch.cumsum(rows, dim=0, dtype=torch.float64)
     is_end = torch.ones_like(sa, dtype=torch.bool)
     is_end[:-1] = sa[:-1] != sa[1:]
     # run ends have unique addresses; every other row goes to a spare
     # slot past the end, which is cut off
     idx = torch.where(is_end, sa, n_bins_p1)
-    dense = hist.new_zeros((n_bins_p1 + 1, 4)).index_copy_(
+    dense = csum.new_zeros((n_bins_p1 + 1, 4)).index_copy_(
         0, idx, csum)[:n_bins_p1]
     filled = torch.cummax(dense, dim=0).values
     return hist.add_(torch.diff(filled, dim=0,
-                                prepend=filled.new_zeros((1, 4))))
+                                prepend=filled.new_zeros((1, 4)))
+                     .to(hist.dtype))
 
 
 BACKENDS = {
