@@ -14,13 +14,12 @@ import torch
 from cuburn_tpu_torch.device import resolve_device
 from cuburn_tpu_torch.models import full_feature
 from cuburn_tpu_torch.ops import chaos
-from cuburn_tpu_torch.ops import flush as flush_mod
-from cuburn_tpu_torch.ops import tiled_sort
 from cuburn_tpu_torch.ops.camera import CameraSpec
 from cuburn_tpu_torch.ops.iterate import (IterState, init_state,
                                           iterate_records, record_bits,
                                           xform_cdf_rows)
 from cuburn_tpu_torch.params import params_from_genome
+from cuburn_tpu_torch.utils import trace
 
 
 def card(cpu: bool):
@@ -106,7 +105,8 @@ class Chaos:
         return state
 
 
-COUNTERS = (chaos.LAUNCHES, flush_mod.LAUNCHES, tiled_sort.LAUNCHES)
+# the render path's launch counters, as FrameStats.launches reads them
+COUNTERS = trace.launch_counters()
 
 
 def reset_launches() -> None:
@@ -118,4 +118,4 @@ def reset_launches() -> None:
 def launches() -> dict:
     """The render path's kernel launches since the last reset, those
     that launched."""
-    return {k: v for counts in COUNTERS for k, v in counts.items() if v}
+    return {k: v for k, v in trace.launches().items() if v}

@@ -147,6 +147,8 @@ def _stats_record(frame_idx, t, stats):
         "samples_per_sec": round(stats.samples_per_sec, 1),
         "iterate_ms": round(stats.iterate_s * 1e3, 2),
         "filter_ms": round(stats.filter_s * 1e3, 2),
+        "chunks": stats.chunks, "records": stats.records,
+        "launches": stats.launches, "syncs": stats.syncs,
     }
 
 

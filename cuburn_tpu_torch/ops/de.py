@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from cuburn_tpu_torch.ops.filtering import depthwise_conv
+from cuburn_tpu_torch.utils import trace
 
 N_BANDS = 8
 MAX_RADIUS_CAP = 24          # absolute clamp on DE radius, px
@@ -52,7 +53,7 @@ def _gaussian_taps(radius: float, half: int, device):
     x = np.arange(-half, half + 1, dtype=np.float32)
     sigma = max(radius * 0.5, 1e-3)
     k = np.exp(-0.5 * (x / sigma) ** 2)
-    return torch.as_tensor(k / k.sum(), device=device)
+    return trace.upload(k / k.sum(), device)
 
 
 def _pyramid_plan(radius: float, half: int, width: int):
@@ -109,7 +110,7 @@ def _sep_blur_band(img, radius: float, half: int):
     x = x.repeat_interleave(f, dim=0).repeat_interleave(f, dim=1)
     tri = np.maximum(
         1.0 - np.abs(np.arange(-(f - 1), f, dtype=np.float32)) / f, 0.0)
-    x = _sep_blur(x, torch.as_tensor(tri / f, device=dev), f - 1)
+    x = _sep_blur(x, trace.upload(tri / f, dev), f - 1)
     return x[:H, :W]
 
 
@@ -169,7 +170,10 @@ def density_filter(img, density, max_radius, min_radius, curve,
     for k in range(N_BANDS):
         # linear hat: weight 1 at rung k, 0 beyond the neighbours
         w = torch.clamp(1.0 - torch.abs(u - k), min=0.0)[..., None]
-        if skip_empty and not bool((w > 0).any()):
-            continue
+        if skip_empty:
+            with trace.wait():
+                empty = not bool((w > 0).any())
+            if empty:
+                continue
         out = out + _sep_blur_band(img * w, radii[k], taps[k])
     return out

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cuburn_tpu_torch.utils import trace
+
 EPS = float(np.float32(1e-9))
 _K1 = float(np.float32(268.0 / 256.0))
 
@@ -277,9 +279,9 @@ def downsample(img, ss: int, spatial_filter: float = 0.0,
         hs, ws, c = img.shape
         h, w = hs // ss, ws // ss
         return img.reshape(h, ss, w, ss, c).mean(dim=(1, 3))
-    taps = torch.as_tensor(
+    taps = trace.upload(
         spatial_filter_taps(filter_shape, float(spatial_filter), ss),
-        device=img.device)
+        img.device)
     fwidth = taps.shape[0]
     pad = (fwidth - ss) // 2
     py, px = max(pad - gy, 0), max(pad - gx, 0)

@@ -24,6 +24,7 @@ from cuburn_tpu_torch.genome.specs import (IDENTITY_AFFINE, Genome,
                                            GenomeParams)
 from cuburn_tpu_torch.genome.spline import Spline
 from cuburn_tpu_torch.genome.variations import PARAM_DEFAULTS
+from cuburn_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -45,9 +46,8 @@ class PackedGenome:
         """Evaluate at times ts (T,) -> GenomeParams with a leading
         temporal axis (T, ...) on every leaf; `sample_params` takes
         sample k."""
-        ts = torch.as_tensor(
-            np.atleast_1d(np.asarray(ts, np.float32)),
-            device=self.knot_t.device)
+        ts = trace.upload(np.atleast_1d(np.asarray(ts, np.float32)),
+                          self.knot_t.device)
         vals = eval_packed(self.knot_t, self.knot_v, self.counts, ts)
         pals = _palette_at(self.palettes, self.palette_times, ts)
         return self._rebuild(vals, pals)
@@ -227,22 +227,31 @@ def pack_genome(genome: Genome, device="cpu") -> PackedGenome:
     pals = np.stack([p for _, p in genome.palettes]).astype(np.float32)
 
     def on_device(a):
-        return torch.as_tensor(a, device=device)
+        return trace.upload(a, device)
 
     slot_of = {name: on_device(np.asarray(ix, np.int64))
                for name, ix in idx.items()}
     zoom = on_device(np.asarray(zoom, np.int64))
 
     def rebuild(vals: torch.Tensor, palette: torch.Tensor) -> GenomeParams:
-        leaves = {name: vals[:, ix] for name, ix in slot_of.items()}
+        leaves = {name: _take(vals, ix) for name, ix in slot_of.items()}
         # flam3 zoom: effective ppu = scale * 2^zoom (specs.eval_at)
-        leaves["ppu"] = leaves["ppu"] * 2.0 ** vals[:, zoom]
+        leaves["ppu"] = leaves["ppu"] * 2.0 ** _take(vals, zoom)
         return GenomeParams(palette=palette, **leaves)
 
     return PackedGenome(
         knot_t=on_device(knot_t), knot_v=on_device(knot_v),
         counts=on_device(counts), palettes=on_device(pals),
         palette_times=on_device(pal_times), _rebuild=rebuild)
+
+
+def _take(vals: torch.Tensor, ix: torch.Tensor) -> torch.Tensor:
+    """vals[:, ix].  A 0-d index tensor is read on the host to index
+    with: a counted wait (one a scalar leaf, 14 an evaluation)."""
+    if ix.dim():
+        return vals[:, ix]
+    with trace.wait():
+        return vals[:, ix]
 
 
 def _param_default(attr: str) -> float:

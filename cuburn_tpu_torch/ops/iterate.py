@@ -39,6 +39,7 @@ from cuburn_tpu_torch.ops.interp import sample_params
 from cuburn_tpu_torch.ops.xform import (apply_final_xform, apply_xforms,
                                         build_xform_table,
                                         select_and_fetch)
+from cuburn_tpu_torch.utils import trace
 
 BADVALUE_LIMIT = float(np.float32(1e10))
 MASK32 = rng_mod.MASK32
@@ -62,15 +63,17 @@ def init_state(generator: torch.Generator, batch: int,
     """Fresh trajectories: uniform in the bi-unit square, random color,
     age 0 (they run `fuse` warmup iterations before plotting).  Drawn
     from `generator` on its own device, then moved to `device`, so the
-    streams differ from the JAX package's threefry-seeded ones."""
+    streams differ from the JAX package's threefry-seeded ones.  A CPU
+    generator's draws are four uploads (counted waits)."""
     gdev = generator.device
     xy = torch.rand((2, batch), generator=generator,
                     device=gdev) * 2.0 - 1.0
     color = torch.rand((batch,), generator=generator, device=gdev)
     rng = rng_mod.seed(generator, batch, device)
     zeros = torch.zeros((batch,), dtype=torch.int64, device=device)
-    return IterState(x=xy[0].to(device), y=xy[1].to(device),
-                     color=color.to(device), last_xf=zeros,
+    return IterState(x=trace.upload(xy[0], device),
+                     y=trace.upload(xy[1], device),
+                     color=trace.upload(color, device), last_xf=zeros,
                      age=zeros.clone(), rng=rng)
 
 
@@ -358,7 +361,8 @@ def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
     ops/histogram.py backend; a packed-record flush raises ValueError
     there, as in the JAX package.  Returns (new_state, hist, plotted)
     with plotted a float32 device scalar, as the JAX counterpart's f32
-    counter."""
+    counter.  Each chunk is a `chunk` span, its plotted count a `count`
+    span."""
     cbits, tot_bits = (record_bits(key, cam, backend, op_bits) if packed
                        else (0, 0))
     if backend in PACKED_FLUSHES:
@@ -390,12 +394,22 @@ def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
                        device=state.x.device)
     plotted = torch.zeros((), dtype=torch.float32, device=state.x.device)
     for _ in range(n_chunks):
-        state = iterate_records(plan, state, recs)
-        hist = flush(hist, recs, palette_hi, cam.n_bins, tot_bits, weight)
-        # per-chunk count is exact in int64; the running total is f32
-        plotted = plotted + ((recs >> tot_bits) != cam.junk_bin).sum() \
-            .to(torch.float32)
+        with trace.span("chunk"):
+            state = iterate_records(plan, state, recs)
+            hist = flush(hist, recs, palette_hi, cam.n_bins, tot_bits,
+                         weight)
+            # per-chunk count is exact in int64; the running total is f32
+            with trace.span("count"):
+                plotted = plotted + ((recs >> tot_bits)
+                                     != cam.junk_bin).sum() \
+                    .to(torch.float32)
+    _count_chunks(n_chunks, recs.numel())
     return state, hist, plotted
+
+
+def _count_chunks(n_chunks: int, records_a_chunk: int) -> None:
+    trace.COUNTS["chunks"] += n_chunks
+    trace.COUNTS["records"] += n_chunks * records_a_chunk
 
 
 def _accumulate_unpacked(key, cam, scatter, params, cdf_rows, state, hist,
@@ -406,12 +420,16 @@ def _accumulate_unpacked(key, cam, scatter, params, cdf_rows, state, hist,
     plan = chaos.plan(key, cam, params, cdf_rows, ppu, fuse)
     plotted = torch.zeros((), dtype=torch.float32, device=state.x.device)
     for _ in range(n_chunks):
-        state, addrs, rgbas = _full_records(plan, state, iters_per_flush)
-        if weight is not None:
-            rgbas = rgbas * weight
-        hist = scatter(hist, addrs, rgbas)
-        plotted = plotted + (addrs != cam.junk_bin).sum() \
-            .to(torch.float32)
+        with trace.span("chunk"):
+            state, addrs, rgbas = _full_records(plan, state,
+                                                iters_per_flush)
+            if weight is not None:
+                rgbas = rgbas * weight
+            hist = scatter(hist, addrs, rgbas)
+            with trace.span("count"):
+                plotted = plotted + (addrs != cam.junk_bin).sum() \
+                    .to(torch.float32)
+    _count_chunks(n_chunks, iters_per_flush * state.x.shape[0])
     return state, hist, plotted
 
 
@@ -435,18 +453,20 @@ def iterate_accumulate_temporal(key: StructureKey, cam: CameraSpec,
     its rgb to bf16 once per touched bin per flush, whether a frame
     has T flush groups or one (the JAX package's contract too).
     `packed` is iterate_accumulate's.  Returns (new_state, hist,
-    plotted), plotted unweighted."""
+    plotted), plotted unweighted.  Each sample is a `sample` span."""
     n_samples = ppu_T.shape[0]
     if weights_T is None:
         weights_T = [None] * n_samples
     plotted = torch.zeros((), dtype=torch.float32, device=state.x.device)
     for k in range(n_samples):
-        params_k = sample_params(params_T, k)
-        state, hist, n = iterate_accumulate(
-            key, cam, backend, params_k, xform_cdf_rows(params_k), state,
-            hist, ppu_T[k], n_chunks_per_sample, iters_per_flush, fuse,
-            op_bits=op_bits, weight=weights_T[k], packed=packed)
-        plotted = plotted + n
+        with trace.span("sample"):
+            params_k = sample_params(params_T, k)
+            state, hist, n = iterate_accumulate(
+                key, cam, backend, params_k, xform_cdf_rows(params_k),
+                state, hist, ppu_T[k], n_chunks_per_sample,
+                iters_per_flush, fuse, op_bits=op_bits,
+                weight=weights_T[k], packed=packed)
+            plotted = plotted + n
     return state, hist, plotted
 
 

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from cuburn_tpu_torch.utils import trace
+
 MASK32 = 0xFFFFFFFF
 # 1/2^24 — uniforms are built from the top 24 bits so they are exact f32.
 _INV24 = 1.0 / (1 << 24)
@@ -27,15 +29,16 @@ def seed(generator: torch.Generator, n: int,
     This replaces the JAX package's threefry seeding, so the streams
     differ from JAX's for the same integer seed; parity tests inject
     JAX-made state instead (`cuburn_tpu_torch.params.state_from_numpy`).
-    The state is drawn on the generator's device and then moved, so one
-    seed gives the same trajectories on every device.  A lane whose four
+    The state is drawn on the generator's device and then moved (from a
+    CPU generator, an upload: a counted wait), so one seed gives the
+    same trajectories on every device.  A lane whose four
     words are all zero would stay zero forever, so it gets one nonzero
     word."""
     bits = torch.randint(0, 1 << 32, (n, 4), generator=generator,
                          dtype=torch.int64, device=generator.device)
     row_zero = (bits == 0).all(dim=-1)
     bits[:, 0] = torch.where(row_zero, _NONZERO_WORD, bits[:, 0])
-    return bits.to(device)
+    return trace.upload(bits, device)
 
 
 def _step(x, y, z, w):

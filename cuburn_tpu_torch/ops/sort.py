@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from cuburn_tpu_torch.ops.tiled_sort import bitonic_sort_u32_tiled
+from cuburn_tpu_torch.utils import trace
 
 SENTINEL = 0xFFFFFFFF
 
@@ -34,17 +35,21 @@ def sort_records(records: torch.Tensor) -> torch.Tensor:
     padded by pad_records.  The records are u32 values: CUDA tensors
     launch the tiled bitonic sort kernel (one launch a pass), which keeps
     each record's low 32 bits unchecked; CPU tensors take torch.sort, and
-    the CPU flushes refuse records outside u32 before they sort."""
-    flat = pad_records(records)
-    if flat.device.type == "cuda":
-        return bitonic_sort_u32_tiled(flat)
-    return torch.sort(flat).values
+    the CPU flushes refuse records outside u32 before they sort.  One
+    `sort` span."""
+    with trace.span("sort"):
+        flat = pad_records(records)
+        if flat.device.type == "cuda":
+            return bitonic_sort_u32_tiled(flat)
+        return torch.sort(flat).values
 
 
 def sort_records_reference(records: torch.Tensor) -> torch.Tensor:
     """sort_records by torch.sort on any device: the plain flushes sort
-    with it, so that a plain version never launches a kernel."""
-    return torch.sort(pad_records(records)).values
+    with it, so that a plain version never launches a kernel.  One
+    `sort` span."""
+    with trace.span("sort"):
+        return torch.sort(pad_records(records)).values
 
 
 def merge_sorted_records(sorted_recs: torch.Tensor, junk_record: int):

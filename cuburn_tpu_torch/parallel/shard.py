@@ -61,6 +61,7 @@ from cuburn_tpu_torch.profile import RenderProfile
 from cuburn_tpu_torch.render import (FrameStats, Renderer, _filter_window,
                                      _merge_stripe, _with_alpha,
                                      stripe_cameras)
+from cuburn_tpu_torch.utils import trace
 from cuburn_tpu_torch.utils.timing import sync
 
 
@@ -412,10 +413,12 @@ class ShardedRenderer(Renderer):
         pending = None
         t_prev = time.perf_counter()
         for i, t in self.frame_times():
+            before = trace.counters()
             block, n_plot, n_iter = self.accumulate_scattered_async(
                 t, seed + i)
             img_dev = self.finalize_frame_scattered_device(block, t)
-            queued = self._queue_readback(img_dev, n_plot) + (n_iter,)
+            queued = self._queue_readback(img_dev, n_plot) + (
+                n_iter, trace.since(before))
             now = time.perf_counter()
             if pending is not None:
                 yield self._resolve_pending(pending, now - t_prev)

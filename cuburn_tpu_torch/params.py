@@ -17,6 +17,7 @@ import torch
 
 from cuburn_tpu_torch.genome.specs import Genome, GenomeParams
 from cuburn_tpu_torch.ops.iterate import IterState
+from cuburn_tpu_torch.utils import trace
 
 
 def genome_from_jax(genome) -> Genome:
@@ -31,10 +32,11 @@ def genome_from_jax(genome) -> Genome:
 
 
 def params_from_genome(params: GenomeParams, device) -> GenomeParams:
-    """A GenomeParams whose leaves are float32 tensors on `device`."""
+    """A GenomeParams whose leaves are float32 tensors on `device`: one
+    upload (a counted wait) a leaf."""
     return GenomeParams(**{
-        f.name: torch.as_tensor(
-            np.array(getattr(params, f.name), np.float32), device=device)
+        f.name: trace.upload(np.array(getattr(params, f.name), np.float32),
+                             device)
         for f in dataclasses.fields(GenomeParams)})
 
 

@@ -60,6 +60,7 @@ from cuburn_tpu_torch.ops.iterate import (PACKED_FLUSHES, color_bits_for,
 from cuburn_tpu_torch.ops.variations import VARIATION_IMPLS
 from cuburn_tpu_torch.params import params_from_genome
 from cuburn_tpu_torch.profile import RenderProfile
+from cuburn_tpu_torch.utils import trace
 from cuburn_tpu_torch.utils.timing import sync
 
 # every histogram backend of the JAX package: the packed-record
@@ -235,11 +236,25 @@ def temporal_filter_weights(n: int, ftype: str = "box",
 
 @dataclass
 class FrameStats:
-    """Per-frame observability record."""
+    """Per-frame observability record.  `chunks` (chunks run),
+    `records` (records flushed), `launches` (hand-written kernels
+    launched) and `syncs` (host waits for the stream) count the
+    frame's own work, its readback included (utils/trace.py)."""
     plotted_samples: int = 0
     total_iters: int = 0
     iterate_s: float = 0.0
     filter_s: float = 0.0
+    chunks: int = 0
+    records: int = 0
+    launches: int = 0
+    syncs: int = 0
+
+    def count(self, counted: dict) -> None:
+        """Add what `trace.since` counted to the frame's counters."""
+        self.chunks += counted["chunks"]
+        self.records += counted["records"]
+        self.launches += counted["launches"]
+        self.syncs += counted["syncs"]
 
     @property
     def retention(self) -> float:
@@ -596,12 +611,15 @@ class Renderer:
         the logical (n_bins+1, 4) histogram on the device and stats.
         Ends in a device sync, so iterate_s is the true device time."""
         stats = FrameStats()
+        before = trace.counters()
         t0 = time.perf_counter()
         hist, n_plot, n_iter = self.accumulate_async(t, seed, hist0)
-        stats.plotted_samples += int(n_plot)     # reads back: syncs
+        with trace.wait():
+            stats.plotted_samples += int(n_plot)
         stats.total_iters += n_iter
         sync(self.device)
         stats.iterate_s = time.perf_counter() - t0
+        stats.count(trace.since(before))
         return hist_to_logical(self.backend, hist, self.cam.n_bins), \
             stats
 
@@ -617,21 +635,21 @@ class Renderer:
         prof, cam = self.profile, self.cam
         eff_seed = seed * 7919
         if hist0 is not None:
-            hist = torch.as_tensor(np.asarray(hist0, np.float32)) \
-                .to(self.device).clone()
+            hist = trace.upload(np.asarray(hist0, np.float32),
+                                self.device).clone()
             if hist.shape != (cam.n_bins + 1, 4):
                 raise ValueError(
                     f"resume histogram shape {tuple(hist.shape)} != "
                     f"{(cam.n_bins + 1, 4)}")
-            mass = int(min(float(hist[:, 3].sum()), 2.0 ** 62))
+            with trace.wait():
+                mass = int(min(float(hist[:, 3].sum()), 2.0 ** 62))
             eff_seed = (eff_seed ^ (mass * 0x9E3779B9)) & 0x7FFFFFFF
             hist = hist_to_layout(self.backend, hist)
         else:
             hist = hist_alloc_for(self.backend, cam.n_bins, self.device)
         ts_times, ts_weights, _sumfilt = self._temporal_times(t)
         if len(ts_times) == 1:
-            params = params_from_genome(
-                self.genome.eval_at(ts_times[0]), self.device)
+            params = self._params_at(ts_times[0])
             return self._accumulate_sample(params, hist, seed=eff_seed,
                                            iters=prof.total_iters)
         # motion blur: parameters of every temporal sample from the
@@ -662,14 +680,14 @@ class Renderer:
         histogram on the device and stats; ends in a device sync."""
         prof, cam = self.profile, self.cam
         stats = FrameStats()
+        before = trace.counters()
         full = hist_mod.alloc(cam.n_bins, self.device)
         ts_times, ts_weights, _sumfilt = self._temporal_times(t)
         t0 = time.perf_counter()
         for scam in stripe_cameras(cam, n_stripes):
             hist = hist_alloc_for(self.backend, scam.n_bins, self.device)
             if len(ts_times) == 1:
-                params = params_from_genome(
-                    self.genome.eval_at(ts_times[0]), self.device)
+                params = self._params_at(ts_times[0])
                 hist, n_plot, n_iter = self._accumulate_sample(
                     params, hist, seed=seed * 7919,
                     iters=prof.total_iters, cam=scam)
@@ -681,50 +699,75 @@ class Renderer:
             h_log = hist_to_logical(self.backend, hist, scam.n_bins)
             _merge_stripe(full, h_log[:scam.n_bins], scam.tile_row0,
                           scam.acc_height, cam.acc_width)
-            stats.plotted_samples += int(n_plot)
+            with trace.wait():
+                stats.plotted_samples += int(n_plot)
             stats.total_iters += n_iter
         sync(self.device)
         stats.iterate_s = time.perf_counter() - t0
+        stats.count(trace.since(before))
         return full, stats
 
     def finalize_frame(self, hist, t: float = 0.0,
                        stats: Optional[FrameStats] = None) -> np.ndarray:
         """logscale -> DE -> downsample -> colorclip a logical
         histogram into a u8 (H, W, 4) numpy frame."""
+        before = trace.counters()
         t1 = time.perf_counter()
-        img = _with_alpha(
-            self.finalize_frame_device(hist, t).cpu().numpy())
+        img_dev = self.finalize_frame_device(hist, t)
+        with trace.span("readback"):
+            with trace.wait():
+                img = img_dev.cpu()
+            img = _with_alpha(img.numpy())
         if stats is not None:
             stats.filter_s = time.perf_counter() - t1
+            stats.count(trace.since(before))
         return img
 
     def finalize_frame_device(self, hist, t: float = 0.0):
         """finalize_frame without the readback: the u8 frame as a
         device tensor, (H, W, 3) for opaque profiles (alpha is the
-        constant the host fills in) and (H, W, 4) for transparent."""
-        params, q_cell, kw = self._filter_inputs(t)
-        hist = torch.as_tensor(hist, dtype=torch.float32).to(self.device)
-        return _filter_frame(self.cam, hist=hist_mod.finalize(hist),
-                             params=params, quality_per_cell=q_cell, **kw)
+        constant the host fills in) and (H, W, 4) for transparent.  One
+        `filter` span."""
+        with trace.span("filter"):
+            params, q_cell, kw = self._filter_inputs(t)
+            hist = self._hist_on_device(hist)
+            return _filter_frame(self.cam, hist=hist_mod.finalize(hist),
+                                 params=params, quality_per_cell=q_cell,
+                                 **kw)
+
+    def _hist_on_device(self, hist) -> torch.Tensor:
+        """A logical histogram as float32 on the device: uploaded (a
+        counted wait) unless it is a tensor there already."""
+        if isinstance(hist, torch.Tensor) \
+                and hist.device.type == self.device.type:
+            return hist.to(torch.float32)
+        return trace.upload(hist, self.device, torch.float32)
+
+    def _params_at(self, t: float):
+        """The genome at `t` as device parameters: a `params` span."""
+        with trace.span("params"):
+            return params_from_genome(self.genome.eval_at(t), self.device)
 
     def _filter_inputs(self, t: float):
         """What every filter of the frame at `t` takes: (params on the
         device, quality per accumulator cell, the filter's keywords:
         transparent, de_on, de_static_r, spatial_filter, filter_shape,
-        earlyclip)."""
+        earlyclip).  One `params` span."""
         prof, cam = self.profile, self.cam
-        host_params = self.genome.eval_at(t)
-        _times, _w, sumfilt = self._temporal_times(t)
-        q_cell = torch.tensor(
-            np.float32(prof.quality * sumfilt / (cam.ss * cam.ss)),
-            device=self.device)
-        de_r = self._static_de_r
-        return params_from_genome(host_params, self.device), q_cell, dict(
-            transparent=prof.transparent, de_on=self._de_on(host_params),
-            de_static_r=de_r if de_r > 0 else 9.0,
-            spatial_filter=self._static_sf,
-            filter_shape=self.genome.spatial_filter_shape,
-            earlyclip=self.genome.earlyclip)
+        with trace.span("params"):
+            host_params = self.genome.eval_at(t)
+            _times, _w, sumfilt = self._temporal_times(t)
+            q_cell = trace.upload(
+                np.float32(prof.quality * sumfilt / (cam.ss * cam.ss)),
+                self.device)
+            de_r = self._static_de_r
+            return params_from_genome(host_params, self.device), q_cell, \
+                dict(transparent=prof.transparent,
+                     de_on=self._de_on(host_params),
+                     de_static_r=de_r if de_r > 0 else 9.0,
+                     spatial_filter=self._static_sf,
+                     filter_shape=self.genome.spatial_filter_shape,
+                     earlyclip=self.genome.earlyclip)
 
     def finalize_frame_banded(self, hist, t: float = 0.0,
                               stats: Optional[FrameStats] = None,
@@ -741,17 +784,20 @@ class Renderer:
         one device sync each.  One device-to-host copy for all bands;
         an opaque frame's alpha is filled on the host."""
         prof, cam = self.profile, self.cam
+        before = trace.counters()
         t1 = time.perf_counter()
         params, q_cell, kw = self._filter_inputs(t)
         H, W = prof.height, prof.width
         h_band, layout = self._band_layout(n_bands, kw["de_on"])
         if skip_empty is None:
             skip_empty = os.environ.get("CUBURN_DE_SKIP_EMPTY") == "1"
-        himg = torch.as_tensor(hist, dtype=torch.float32) \
-            .to(self.device)[:-1].reshape(cam.acc_height, cam.acc_width, 4)
+        himg = self._hist_on_device(hist)[:-1].reshape(
+            cam.acc_height, cam.acc_width, 4)
         bands = _filter_banded_device(
             himg, layout, params, q_cell, cam.ss, cam.gutter,
-            skip_empty=bool(skip_empty), **kw).cpu().numpy()
+            skip_empty=bool(skip_empty), **kw)
+        with trace.wait():
+            bands = bands.cpu().numpy()
         out = np.zeros((H, W, 4), np.uint8)
         if not prof.transparent:
             out[..., 3] = 255
@@ -762,6 +808,7 @@ class Renderer:
                 out[b * h_band:b * h_band + rows, :, :ch] = bands[b][:rows]
         if stats is not None:
             stats.filter_s = time.perf_counter() - t1
+            stats.count(trace.since(before))
         return out
 
     def _de_on(self, host_params) -> bool:
@@ -826,9 +873,11 @@ class Renderer:
 
     def _trajectories(self, seed: int, batch: int):
         """The starting state of the batch's trajectories that this
-        renderer runs: all of them on one device."""
-        return init_state(torch.Generator().manual_seed(seed), batch,
-                          self.device)
+        renderer runs: all of them on one device.  A `trajectories`
+        span."""
+        with trace.span("trajectories"):
+            return init_state(torch.Generator().manual_seed(seed), batch,
+                              self.device)
 
     def _sample_setup(self, params, seed: int, iters: float):
         """What the chaos game of one sample of ~`iters` iterations
@@ -846,14 +895,15 @@ class Renderer:
                            cam: Optional[CameraSpec] = None):
         """Run the chaos game for ~`iters` iterations into hist through
         `cam` (default the frame's camera; a stripe's for
-        accumulate_striped)."""
+        accumulate_striped).  The chaos game is a `sample` span."""
         prof = self.profile
         state, cdf_rows, ppu, n_chunks, per_chunk = self._sample_setup(
             params, seed, iters)
-        _state, hist, plotted = iterate_accumulate(
-            self.key, cam or self.cam, self.backend, params, cdf_rows,
-            state, hist, ppu, n_chunks, prof.iters_per_chunk, prof.fuse,
-            op_bits=self.op_bits, packed=self.packed)
+        with trace.span("sample"):
+            _state, hist, plotted = iterate_accumulate(
+                self.key, cam or self.cam, self.backend, params, cdf_rows,
+                state, hist, ppu, n_chunks, prof.iters_per_chunk,
+                prof.fuse, op_bits=self.op_bits, packed=self.packed)
         return hist, plotted, n_chunks * per_chunk
 
     def _temporal_setup(self, ts_times, ts_weights, seed: int,
@@ -864,10 +914,11 @@ class Renderer:
         frame's iterations, not one sample's: the trajectories carry
         over between samples."""
         prof = self.profile
-        if self._packed_genome is None:
-            self._packed_genome = pack_genome(self.genome, self.device)
-        params_T = self._packed_genome.eval_params(
-            np.asarray(ts_times, np.float32))
+        with trace.span("params"):
+            if self._packed_genome is None:
+                self._packed_genome = pack_genome(self.genome, self.device)
+            params_T = self._packed_genome.eval_params(
+                np.asarray(ts_times, np.float32))
         ppu_T = params_T.ppu * float(np.float32(
             prof.width / self.genome.size[0]))
         batch = self._batch_for(iters_per_sample * len(ts_times))
@@ -934,15 +985,19 @@ class Renderer:
         sum's last bit differently between any two runs.  FrameStats
         differ: iterate_s is the
         dispatch-to-dispatch wall time, what an encoder waits for a
-        frame, and filter_s the wait for the readback alone."""
+        frame, and filter_s the wait for the readback alone.  A frame's
+        counters hold its own readback's wait, made after the next
+        frame's launches."""
         pending = None
         t_prev = time.perf_counter()
         for i, t in self.frame_times():
+            before = trace.counters()
             hist, n_plot, n_iter = self.accumulate_async(t, seed + i)
             logical = hist_to_logical(self.backend, hist,
                                       self.cam.n_bins)
             img_dev = self.finalize_frame_device(logical, t)
-            queued = self._queue_readback(img_dev, n_plot) + (n_iter,)
+            queued = self._queue_readback(img_dev, n_plot) + (
+                n_iter, trace.since(before))
             now = time.perf_counter()
             if pending is not None:
                 yield self._resolve_pending(pending, now - t_prev)
@@ -956,30 +1011,40 @@ class Renderer:
         """Queue the copies of a frame's image and plotted count to the
         host behind the frame's launches.  Returns (image, count,
         event): pinned host tensors that are valid once the event has
-        passed, or the CPU tensors themselves and no event."""
+        passed, or the CPU tensors themselves and no event.  A
+        `readback` span."""
         if self.device.type != "cuda":
             return img_dev, n_plot, None
-        host = [torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                .copy_(v, non_blocking=True) for v in (img_dev, n_plot)]
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        return host[0], host[1], event
+        with trace.span("readback"):
+            host = [torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    .copy_(v, non_blocking=True) for v in (img_dev, n_plot)]
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            return host[0], host[1], event
 
     @staticmethod
     def _resolve_pending(pending, wall_s: float):
-        img_host, n_plot, event, n_iter = pending
+        """The frame of `_queue_readback`'s (image, count, event) and
+        (total_iters, counted since the frame began): a `readback` span
+        whose wait for the event counts on the CPU too."""
+        img_host, n_plot, event, n_iter, counted = pending
         stats = FrameStats()
+        before = trace.counters()
         t1 = time.perf_counter()
-        if event is not None:
-            event.synchronize()
-        img = img_host.numpy()
-        # an RGBA frame is copied out of the pinned buffer, which the
-        # allocator hands to a later frame
-        img = _with_alpha(img) if img.shape[-1] == 3 else img.copy()
+        with trace.span("readback"):
+            with trace.wait():
+                if event is not None:
+                    event.synchronize()
+            img = img_host.numpy()
+            # an RGBA frame is copied out of the pinned buffer, which
+            # the allocator hands to a later frame
+            img = _with_alpha(img) if img.shape[-1] == 3 else img.copy()
         stats.filter_s = time.perf_counter() - t1
         stats.plotted_samples = int(n_plot)
         stats.total_iters = int(n_iter)
         stats.iterate_s = wall_s
+        stats.count(counted)
+        stats.count(trace.since(before))
         return img, stats
 
     def frames_partitioned(self, seed: int = 0, n_stripes: int = 0,

@@ -15,14 +15,17 @@ from typing import Callable, Tuple
 
 import torch
 
+from cuburn_tpu_torch.utils import trace
+
 
 def sync(device: torch.device | str) -> None:
     """Wait until every kernel queued on `device` has finished: a
     `torch.cuda.synchronize()` on CUDA, nothing on the CPU (which
-    executes eagerly)."""
+    executes eagerly).  A counted wait (`utils/trace.py`) on both."""
     device = torch.device(device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    with trace.wait():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def _devices(x) -> set:

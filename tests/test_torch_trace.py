@@ -1,0 +1,231 @@
+"""The render path's spans and counters (`cuburn_tpu_torch/utils/trace.py`).
+
+Contracts:
+- with no profiler recording, `span()` is the one shared null context
+  and never enters `record_function`; a wait is counted all the same;
+- under torch.profiler a still of full_feature and two overlapped
+  frames of animated_spark (T = 4) export every span of the render
+  path, their counts equal the frames' FrameStats, and no span is open
+  across a yield;
+- the counters of a frame are the sites of the render path, counted
+  the same on the CPU as on the card;
+- images are bit-equal with the profiler on and off.
+"""
+
+import collections
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from cuburn_tpu_torch import main as tmain  # noqa: E402
+from cuburn_tpu_torch import render as trender  # noqa: E402
+from cuburn_tpu_torch.bench import _card  # noqa: E402
+from cuburn_tpu_torch.genome.specs import GenomeParams  # noqa: E402
+from cuburn_tpu_torch.models import get_genome  # noqa: E402
+from cuburn_tpu_torch.ops import de as de_mod  # noqa: E402
+from cuburn_tpu_torch.ops import tiled_sort  # noqa: E402
+from cuburn_tpu_torch.profile import RenderProfile  # noqa: E402
+from cuburn_tpu_torch.utils import timing, trace  # noqa: E402
+
+SPANS = ("params", "trajectories", "sample", "chunk", "sort", "count",
+         "filter", "readback", "sync")
+STILL = dict(width=32, height=24, quality=4, batch=1024,
+             hist_backend="pallas_win")
+ANIM = dict(STILL, temporal_samples=4, duration=2 / 24.0)
+LEAVES = len(dataclasses.fields(GenomeParams))
+
+
+def _eval_waits():
+    """The interpolator's waits a blurred frame: the shutter times'
+    upload, and a read of each 0-d slot index (the scalar leaves and
+    the zoom)."""
+    host = get_genome("animated_spark").eval_at(0.0)
+    scalars = sum(np.ndim(getattr(host, f.name)) == 0
+                  for f in dataclasses.fields(GenomeParams))
+    return 1 + scalars + 1
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_tune_record(tmp_path_factory):
+    """No tune record reaches these tests: CUBURN_TUNE_FILE names a file
+    that does not exist."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CUBURN_TUNE_FILE",
+                  str(tmp_path_factory.mktemp("tune") / "none.json"))
+        yield
+
+
+def _events(prof, tmp_path):
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return json.loads(path.read_text())["traceEvents"]
+
+
+def _spans(events, prefix="cuburn."):
+    """(name without the prefix, start, end) of every span of `prefix`,
+    in microseconds."""
+    return [(e["name"][len(prefix):], e["ts"], e["ts"] + e.get("dur", 0))
+            for e in events if e.get("ph") == "X"
+            and e.get("cat") == "user_annotation"
+            and e["name"].startswith(prefix)]
+
+
+def _still():
+    return trender.Renderer(get_genome("full_feature"),
+                            RenderProfile(**STILL), device="cpu")
+
+
+def _anim():
+    return trender.Renderer(get_genome("animated_spark"),
+                            RenderProfile(**ANIM), device="cpu")
+
+
+def _overlapped(r, n, mark=None):
+    """The first n frames of frames_overlapped (seed 3); `mark` opens a
+    span of its own around the consumer's side of each yield."""
+    frames = r.frames_overlapped(seed=3)
+    out = []
+    try:
+        for _ in range(n):
+            out.append(next(frames))
+            if mark is not None:
+                with torch.profiler.record_function(mark):
+                    pass
+    finally:
+        frames.close()
+    return out
+
+
+def test_span_without_a_profiler_is_the_shared_null_context(monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("record_function entered")
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert trace.span("chunk") is trace.span("sort") is trace._NULL
+    before = trace.counters()
+    with trace.wait():
+        pass
+    assert trace.upload(np.ones(3, np.float32), "cpu").dtype == \
+        torch.float32
+    timing.sync("cpu")
+    assert trace.since(before) == {"chunks": 0, "records": 0, "syncs": 3,
+                                   "launches": 0}
+
+
+def test_still_spans_equal_its_counters(tmp_path):
+    r = _still()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _img, stats = r.render_frame(0.0, seed=3)
+    spans = _spans(_events(prof, tmp_path))
+    counts = collections.Counter(n for n, _s, _e in spans)
+    assert set(counts) == set(SPANS)
+    assert counts["chunk"] == stats.chunks == 1
+    assert counts["sync"] == stats.syncs
+    assert counts["sample"] == 1 and counts["sort"] == counts["chunk"]
+    assert counts["count"] == counts["chunk"]
+    assert stats.records == 1024 * r.profile.iters_per_chunk
+    assert stats.launches == 0            # the CPU launches no kernel
+    # every sort and count lies inside a chunk, every chunk in a sample
+    for inner, outer in (("sort", "chunk"), ("count", "chunk"),
+                         ("chunk", "sample")):
+        for _n, s, e in (x for x in spans if x[0] == inner):
+            assert any(o[0] == outer and o[1] <= s and e <= o[2]
+                       for o in spans)
+
+
+def _filter_waits(r):
+    """The filter's waits: the genome's leaves, the quality scalar, the
+    DE's taps (one a rung blurred directly, two a pyramid rung) and the
+    spatial filter's taps."""
+    radii, taps = de_mod.band_ladder(r._static_de_r)
+    de = sum(1 if de_mod._pyramid_plan(rad, half, r.cam.acc_width)[0] == 1
+             else 2 for rad, half in zip(radii, taps))
+    return LEAVES + 1 + de + (1 if r._static_sf > 0 else 0)
+
+
+def test_still_counts_every_wait_of_its_sites():
+    """A still's waits, site by site: the genome's leaves, the
+    trajectories' four draws, the plotted count and the sync, the
+    filter's, and the u8 frame's copy."""
+    r = _still()
+    _img, stats = r.render_frame(0.0, seed=3)
+    assert stats.syncs == LEAVES + 4 + 2 + _filter_waits(r) + 1
+    # the same frame again counts the same
+    assert r.render_frame(0.0, seed=4)[1].syncs == stats.syncs
+
+
+def test_overlapped_spans_equal_counters_and_close_before_yields(tmp_path):
+    r = _anim()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        frames = _overlapped(r, 2, mark="test.consumer")
+    events = _events(prof, tmp_path)
+    spans = _spans(events)
+    counts = collections.Counter(n for n, _s, _e in spans)
+    assert set(counts) == set(SPANS)
+    stats = [s for _img, s in frames]
+    assert counts["chunk"] == sum(s.chunks for s in stats) > 0
+    assert counts["sync"] == sum(s.syncs for s in stats)
+    assert counts["sample"] == 2 * r.profile.temporal_samples
+    assert all(s.chunks == r.profile.temporal_samples for s in stats)
+    # frame 1's waits: the interpolator's, the trajectories', the
+    # filter's, and its readback's
+    assert stats[1].syncs == _eval_waits() + 4 + _filter_waits(r) + 1
+    marks = _spans(events, "test.")
+    assert len(marks) == 2
+    for _m, t, _e in marks:
+        assert not [x for x in spans if x[1] < t < x[2]]
+
+
+def test_overlapped_frames_count_their_own_work():
+    """Each overlapped frame's counters hold the work of the serial
+    loop's frame at the same time and seed, its readback's wait
+    included; the serial frame reads its plotted count, syncs and
+    copies its image, where the overlapped one waits for its event."""
+    r = _anim()
+    over = [s for _img, s in _overlapped(r, 2)]
+    serial = [s for _img, s in r.frames(seed=3)][:2]
+    for a, b in zip(over, serial):
+        assert (a.chunks, a.records, a.launches) == \
+            (b.chunks, b.records, b.launches)
+    assert serial[1].syncs == _eval_waits() + 4 + 2 + _filter_waits(r) + 1
+    # the first frame packs the genome's knots; the second does not
+    assert over[0].syncs > over[1].syncs == serial[1].syncs - 2
+
+
+def test_images_are_bit_equal_with_the_profiler_on_and_off():
+    off = _still().render_frame(0.0, seed=5)[0]
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = _still().render_frame(0.0, seed=5)[0]
+    np.testing.assert_array_equal(on, off)
+    r = _anim()
+    off = [img for img, _s in _overlapped(r, 2)]
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = [img for img, _s in _overlapped(r, 2)]
+    for a, b in zip(on, off):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_launch_counters_have_one_reader():
+    assert _card.COUNTERS == trace.launch_counters()
+    before = trace.counters()
+    tiled_sort.LAUNCHES["bitonic_sort"] += 3
+    try:
+        assert trace.since(before)["launches"] == 3
+        assert _card.launches()["bitonic_sort"] >= 3
+    finally:
+        tiled_sort.LAUNCHES["bitonic_sort"] -= 3
+
+
+def test_metrics_line_carries_the_counters():
+    stats = trender.FrameStats(plotted_samples=9, total_iters=10,
+                               iterate_s=0.5, filter_s=0.25)
+    stats.count({"chunks": 2, "records": 64, "launches": 34, "syncs": 80})
+    rec = tmain._stats_record(0, 0.0, stats)
+    assert (rec["chunks"], rec["records"], rec["launches"],
+            rec["syncs"]) == (2, 64, 34, 80)
