@@ -27,9 +27,9 @@ CUDA toolkit.  Phases, each printed on its own line:
               (`device_ms`), and the bound from the bytes the flush must
               move
   4. render   Renderer(full_feature, 1080p profile at quality Q)
-              .render_frame on cuda through the kernels (the chaos game
-              once a chunk, the sort and win_flush, each launched); the
-              PNG goes to smoke_out/ in
+              .render_frame on cuda through the kernels of `auto`'s
+              backend, `atomic` (the chaos game and packed_flush once a
+              chunk, no sort); the PNG goes to smoke_out/ in
               the checkout.  Then the records of the first two flushes
               of that render (the first holds the fuse steps) against
               the synthetic mix of phases 3 and 6: junk share, touched
@@ -40,7 +40,14 @@ CUDA toolkit.  Phases, each printed on its own line:
               and the three sorted flushes timed with their kernel
               paths and alone, beside the sort, the split flush's two
               launches also apart; each mix's bound for the logical
-              and for the split histogram
+              and for the split histogram.  Then `atomic` against
+              `pallas_win` on a real second flush at three geometries:
+              that 1080p-ss2 flush (8.63 M bins, past L2), a 720p still
+              of animated_spark (982,500 bins) and full_feature at
+              retune.UNTILED_DIMS (512x512, ~16 records a bin): density
+              bit-exact, rgb within 1e-5 of the bin's density, medians
+              of 10 timed calls of each path (ms, device ms), the
+              atomics packed_flush made, the bound
   5. parity   sierpinski and full_feature at 128x128 on cuda against
               the same render on the CPU (the flush's plain version):
               TV distance of the normalised density histograms under 3x
@@ -56,9 +63,10 @@ CUDA toolkit.  Phases, each printed on its own line:
               bitonic sort (bitonic_sort.cu) equal to torch.sort at 2^22
               and 2^23 keys, with each pass's device time; times and
               bounds as in phase 3
-  7. render   full_feature at 1080p through the backends pallas,
-              pallas_merged and pallas_rgb16 at quality Q/2: one launch a
-              flush (two for pallas_rgb16), histogram mass == plotted
+  7. render   full_feature at 1080p through the backends pallas_win,
+              pallas, pallas_merged and pallas_rgb16 at quality Q/2: one
+              launch a flush (two for pallas_rgb16), the sort's passes
+              before each sorted flush, histogram mass == plotted
               samples, a non-black frame
   8. parity   full_feature at 128x128, CUDA against CPU, for every
               backend besides pallas_win, under 3x the two-seed floor;
@@ -67,20 +75,21 @@ CUDA toolkit.  Phases, each printed on its own line:
   9. animation  animated_spark with a gaussian temporal filter at 1080p,
               4 temporal samples a frame at quality Q/2, 3 frames through
               Renderer.frames and again through frames_overlapped
-              (pallas_win): per frame one win_flush launch a flush, 4 x
-              n_chunks flushes, 18 sort passes each; histogram mass ==
+              (auto: atomic): per frame one packed_flush launch a flush,
+              4 x n_chunks flushes, no sort; histogram mass ==
               sum of weight x plotted count over the samples; frame 0
               differs from frame 2 and a blurred frame from the still at
               its time; a gaussian-filtered frame as bright as a
               box-filtered one within 10%; overlapped frames within one
-              u8 step of the serial ones (win_flush's edge atomics), the
+              u8 step of the serial ones (the flush's atomics), the
               two frame loops' wall times taken in turns (serial, overlapped,
               overlapped, serial), and
               through pallas_rgb16 (2 frames) bit-identical; one blurred
-              frame each through pallas and pallas_merged; frames go to
-              smoke_out/
+              frame each through pallas_win (18 sort passes a flush),
+              pallas and pallas_merged; frames go to smoke_out/
  10. partition  frames past the whole-frame limits.  (a) full_feature at
-              1080p, quality Q/2, through pallas_win: accumulate against
+              1080p, quality Q/2, through pallas_win (asked for by name,
+              as in (d) and 11a): accumulate against
               accumulate_striped(n_stripes=4) from the same seed, density
               equal in every bin, rgb within 1e-5 of each bin's density,
               plotted counts equal, win_flush launched 4x the whole
@@ -133,16 +142,18 @@ CUDA toolkit.  Phases, each printed on its own line:
  12. tools    (a) the tuner (retune.py) at its --quick sizes, 4 chunks
               a race, every row raced twice in turns: the record gated
               to this card, every race row numeric in both passes,
-              l2_bytes the card's, win_flush, the split flush and the
-              sort launched during the race; both passes' rows and
+              l2_bytes the card's, win_flush, packed_flush, the split
+              flush and the sort launched during the race; both
+              passes' rows and
               their spread; under the record a 1080p Renderer takes its
               tiled keys (backend and flush size), under the record
               with its picks set to pallas_rgb16 and 2^23 records it
               takes those, under the repo's TPU record it keeps
-              pallas_win and 32 and says "skipped".
+              atomic and 32 and says "skipped".
               (b) full_feature at 1080p, quality 10, through the CLI
               with --trace-dir, in turns with the same render untraced
-              (off, on, on, off): the trace parses, each hand kernel's
+              (off, on, on, off), through auto (atomic: packed_flush, no
+              sort): the trace parses, each hand kernel's
               kernel events equal its launch counter over the call;
               iterate times, trace MB.  (c) the native output encoder
               against the Python one on phase 4's still and phase 9's
@@ -200,9 +211,10 @@ CUDA toolkit.  Phases, each printed on its own line:
               every bin's density and in mass, the pallas_win run's
               launches one chaos_iterate and one win_flush a chunk and
               the sort's passes a flush (the scatter run's one chaos
-              launch a chunk), the 1080p q1000 fields present.  (b) The
-              configs suite: BASELINE.md's five configurations at their
-              binding sizes, one process each, five records, exit 0.
+              launch a chunk), the 1080p q1000 fields present, its
+              backend auto's (atomic).  (b) The configs suite:
+              BASELINE.md's five configurations at their binding sizes,
+              one process each, five records through atomic, exit 0.
               (c) In this process at their defaults, the launches
               counted: parity (ok: scatter and pallas_win on the card
               within the CPU's two-seed TV floor), tileddiff (the
@@ -261,11 +273,15 @@ CHAOS_GENOMES = ("full_feature", "sierpinski", "animated_spark",
                  "classic_swirl")
 # the probe's kernels (phase 14): launched by no render path
 PROBE_KERNELS = ("bf16_roundtrip", "rgb16_skeleton")
-# the backend whose render drives each flush kernel
-RENDER_BACKENDS = {"packed_flush": "pallas", "merged_flush": "pallas_merged",
-                   "win_flush_rgb16": "pallas_rgb16"}
-FLUSH_KERNEL = {"pallas_win": "win_flush",
-                **{b: k for k, b in RENDER_BACKENDS.items()}}
+# the flush kernel of each packed backend
+FLUSH_KERNEL = {"pallas_win": "win_flush", "pallas": "packed_flush",
+                "pallas_merged": "merged_flush",
+                "pallas_rgb16": "win_flush_rgb16", "atomic": "packed_flush"}
+# the backends of phase 7's stills at quality Q/2; phase 4's still goes
+# through auto's, atomic
+STILL_BACKENDS = ("pallas_win", "pallas", "pallas_merged", "pallas_rgb16")
+# the backends that flush their records unsorted
+UNSORTED = ("pallas", "atomic")
 # temporal samples a frame of the animation phase
 ANIM_SAMPLES = 4
 # CUDA kernel launches of each flush kernel in one flush (the sort's
@@ -721,20 +737,22 @@ def tv_distance(a, b):
 
 def phase_render(torch, flush, tiled_sort, tit, write_image, r, quality):
     """The main path on the card (phase 4): returns the launches of its
-    kernels (the chaos game, the flush and the sort) during
-    render_frame, copies of the records of the first two flushes of a
-    second pass, and the frame."""
-    check(r.backend == "pallas_win",
-          f"backend {r.backend}, expected pallas_win")
+    kernels (the chaos game and packed_flush, no sort: auto is atomic)
+    during render_frame, copies of the records of the first two flushes
+    of a second pass, and the frame."""
+    check(r.backend == "atomic", f"backend {r.backend}, expected atomic")
     reset_launches(flush, tiled_sort)
     img, stats = r.render_frame(0.0, seed=1)
     now = launches_now(flush, tiled_sort)
-    launches = {name: now[name] for name in ("win_flush", "bitonic_sort",
-                                             "chaos_iterate")}
+    launches = {name: now[name] for name in ("packed_flush", "chaos_iterate")}
     for name, count in launches.items():
         check(count > 0, f"the 1080p render launched no {name}")
-    check(launches["chaos_iterate"] == launches["win_flush"],
+    check(launches["chaos_iterate"] == launches["packed_flush"],
           f"{launches}: the chaos game not once a chunk")
+    for name in ("win_flush", "merged_flush", "win_flush_rgb16",
+                 "bitonic_sort"):
+        check(now[name] == 0, f"the 1080p render launched {name} "
+              f"{now[name]} times")
     for name in PROBE_KERNELS:
         check(now[name] == 0, f"the 1080p render launched {name}")
         launches[name] = now[name]
@@ -750,15 +768,15 @@ def phase_render(torch, flush, tiled_sort, tit, write_image, r, quality):
     # mass is exact in float64; the plotted counter is float32, as in
     # the JAX package, so past 2^24 it carries its own rounding.  The
     # pass keeps its first two flushes' records for the flush-mix phase.
-    flushes, win = [], tit.PACKED_FLUSHES["pallas_win"]
+    flushes, real = [], tit.PACKED_FLUSHES[r.backend]
 
     def keep_first(hist, recs, *args):
         if len(flushes) < 2:
             flushes.append(recs.reshape(-1).clone())
-        return win(hist, recs, *args)
-    tit.PACKED_FLUSHES["pallas_win"] = keep_first
+        return real(hist, recs, *args)
+    tit.PACKED_FLUSHES[r.backend] = keep_first
     hist, st2 = r.accumulate(0.0, seed=2)
-    tit.PACKED_FLUSHES["pallas_win"] = win
+    tit.PACKED_FLUSHES[r.backend] = real
     check(bool(torch.isfinite(hist).all()), "non-finite histogram")
     mass = float(hist[:-1, 3].double().sum())
     check(abs(mass - st2.plotted_samples) <= 1e-4 * mass,
@@ -771,8 +789,6 @@ def phase_render(torch, flush, tiled_sort, tit, write_image, r, quality):
           iters_per_chunk=prof.iters_per_chunk,
           records_per_flush=prof.batch * prof.iters_per_chunk,
           backend=r.backend, launches=launches,
-          sort_passes_per_flush=len(tiled_sort.bitonic_schedule(
-              1 << (prof.batch * prof.iters_per_chunk - 1).bit_length())),
           plotted_samples=stats.plotted_samples,
           total_iters=stats.total_iters,
           samples_per_s=stats.samples_per_sec,
@@ -894,12 +910,95 @@ def phase_flush_mix(torch, flush, sort, thist, flushes, n_bins, acc_width,
           **{f"{k}_max_abs_err": v for k, v in errs.items()}, **med)
 
 
+def second_flush(tit, r, t=0.0, seed=5):
+    """(records, palette rows, bits) of the second flush of a frame of
+    Renderer `r`: the first past the fuse steps."""
+    real, kept = tit.PACKED_FLUSHES[r.backend], []
+
+    def keep(hist, recs, palette_hi, n_bins, bits, weight=None):
+        if len(kept) < 2:
+            kept.append((recs.reshape(-1).clone(), palette_hi.clone(), bits))
+        return real(hist, recs, palette_hi, n_bins, bits, weight)
+    tit.PACKED_FLUSHES[r.backend] = keep
+    try:
+        r.accumulate(t, seed=seed)
+    finally:
+        tit.PACKED_FLUSHES[r.backend] = real
+    check(len(kept) == 2, f"{len(kept)} flushes kept, expected 2")
+    return kept[1]
+
+
+def phase_default_flush(torch, flush, tit, thist, Renderer, get_profile,
+                        RenderProfile, full_feature, animated_spark):
+    """`atomic` (the default, unsorted) against `pallas_win` (sorted) on
+    a real second flush at three geometries (phase 4): full_feature at
+    1080p ss2, a 720p still of animated_spark and full_feature at
+    retune.UNTILED_DIMS
+    (512x512 at batch 2^17 and 32 steps a flush: ~16 records a bin, the
+    most contended atomics).  Density bit-exact; rgb within 1e-5 of the
+    bin's density plus the float32 rounding of summing its records one
+    by one (density x 2^-24 of the sum: the atomics add in no order,
+    and a hot bin takes 10^4-10^5 records a flush); medians of each
+    path's calls in turns; the atomics packed_flush made; the bound from
+    the records and touched bins.  Returns {geometry: fields}."""
+    from cuburn_tpu_torch.retune import UNTILED_DIMS
+    dev = torch.device("cuda")
+    w, h = UNTILED_DIMS
+    cases = {}
+    for geometry, genome, prof, t in (
+            ("1080p", full_feature(), get_profile("1080p", quality=32),
+             0.0),
+            ("720p", animated_spark(), get_profile("720p", quality=100),
+             0.5),
+            ("512", full_feature(), RenderProfile(
+                width=w, height=h, quality=200, batch=1 << 17), 0.0)):
+        r = Renderer(genome, prof)
+        check(r.backend == "atomic", f"{geometry}: backend {r.backend}")
+        cases[geometry] = (second_flush(tit, r, t), r.cam.n_bins)
+    out = {}
+    for geometry, ((rec, pal, bits), n_bins) in cases.items():
+        hists = {b: thist.alloc(n_bins, dev) for b in ("atomic",
+                                                        "pallas_win")}
+        for b, hist in hists.items():
+            tit.PACKED_FLUSHES[b](hist, rec, pal, n_bins, bits)
+        torch.cuda.synchronize()
+        a, win = hists["atomic"], hists["pallas_win"]
+        check(torch.equal(a[:, 3], win[:, 3]),
+              f"{geometry}: atomic's density differs from pallas_win's")
+        err = (a[:, :3] - win[:, :3]).abs()
+        dens = win[:, 3:].clamp(min=1.0)
+        check(bool((err <= 1e-5 * dens + dens * 2.0 ** -24
+                    * win[:, :3].abs()).all()),
+              f"{geometry}: atomic's rgb {float(err.max())} from "
+              "pallas_win's")
+        med = medians(torch, {
+            f"{b}_ms": (lambda b=b: tit.PACKED_FLUSHES[b](
+                hists[b], rec, pal, n_bins, bits))
+            for b in ("atomic", "pallas_win")})
+        mix = flush_mix(torch, rec, n_bins, bits)
+        out[geometry] = dict(
+            bins=n_bins, color_bits=bits, **mix,
+            atomics=packed_atomics(torch, flush, rec, flush._pal4(pal),
+                                   n_bins, bits),
+            bound_ms=bound(mix["records"] * 8 + (mix["touched_bins"] + 1)
+                           * 32 + pal.shape[0] * 16)[0],
+            rgb_max_abs_err=float(err.max()),
+            rgb_max_err_over_density=float((err / dens).max()),
+            max_density=float(win[:-1, 3].max()), **med,
+            pallas_win_over_atomic_device=(med["pallas_win_device_ms"]
+                                           / med["atomic_device_ms"]))
+        phase(4, "default_flush", geometry=geometry, **out[geometry])
+        del hists, a, win
+    return out
+
+
 def phase_render_backend(torch, flush, tiled_sort, tit, Renderer, genome,
-                         get_profile, name, quality):
-    """full_feature at 1080p through one more kernel's backend (phase
-    7): accumulate + finalize_frame, the two halves of render_frame, so
-    one pass gives the launches, the mass and the frame."""
-    backend = RENDER_BACKENDS[name]
+                         get_profile, backend, quality):
+    """full_feature at 1080p through one more backend (phase 7):
+    accumulate + finalize_frame, the two halves of render_frame, so one
+    pass gives the launches, the mass and the frame.  Returns the
+    launches of its flush kernel and of the sort."""
+    name = FLUSH_KERNEL[backend]
     r = Renderer(genome, get_profile("1080p", quality=quality,
                                      hist_backend=backend))
     check(r.backend == backend, f"backend {r.backend}, expected {backend}")
@@ -914,6 +1013,7 @@ def phase_render_backend(torch, flush, tiled_sort, tit, Renderer, genome,
     hist, stats = r.accumulate(0.0, seed=1)
     img = r.finalize_frame(hist, 0.0, stats)
     launches = flush.LAUNCHES[name]
+    sorts = tiled_sort.LAUNCHES["bitonic_sort"]
     chaos_launches = launches_now(flush, tiled_sort)["chaos_iterate"]
     probe = probe_launches(flush, tiled_sort)
     tit.PACKED_FLUSHES[backend] = wrapper
@@ -924,6 +1024,12 @@ def phase_render_backend(torch, flush, tiled_sort, tit, Renderer, genome,
           f"{flushes} flushes, expected {LAUNCHES_PER_FLUSH[name]} a flush")
     check(chaos_launches == flushes, f"the {backend} render launched the "
           f"chaos game {chaos_launches} times in {flushes} chunks")
+    per_chunk = r._batch_for(r.profile.total_iters) * r.profile.iters_per_chunk
+    passes = 0 if backend in UNSORTED else len(
+        tiled_sort.bitonic_schedule(1 << (per_chunk - 1).bit_length()))
+    check(sorts == flushes * passes, f"the {backend} render launched "
+          f"{sorts} sort passes in {flushes} flushes, expected {passes} a "
+          "flush")
     check(bool(torch.isfinite(hist).all()),
           f"{backend}: non-finite histogram")
     mass = float(hist[:-1, 3].double().sum())
@@ -935,14 +1041,14 @@ def phase_render_backend(torch, flush, tiled_sort, tit, Renderer, genome,
     cam = r.cam
     phase(7, "render", genome="full_feature", profile="1080p",
           quality=quality, bins=cam.n_bins, backend=backend, kernel=name,
-          launches=launches, chaos_launches=chaos_launches,
-          flushes=flushes,
+          launches=launches, sort_launches=sorts,
+          chaos_launches=chaos_launches, flushes=flushes,
           plotted_samples=stats.plotted_samples,
           total_iters=stats.total_iters, mass=mass,
           samples_per_s=stats.samples_per_sec,
           iterate_s=stats.iterate_s, filter_s=stats.filter_s,
           lit_fraction=float((img[..., :3] > 0).any(-1).mean()))
-    return launches
+    return {name: launches, "bitonic_sort": sorts}
 
 
 def phase_parity(torch, Renderer, RenderProfile, g, backend="pallas_win",
@@ -1001,7 +1107,7 @@ def check_frame_launches(flush, tiled_sort, r, stats, frames, what):
     launches}."""
     name = FLUSH_KERNEL[r.backend]
     flushes, per_chunk = frame_flushes(r, stats)
-    passes = 0 if r.backend == "pallas" else len(
+    passes = 0 if r.backend in UNSORTED else len(
         tiled_sort.bitonic_schedule(1 << (per_chunk - 1).bit_length()))
     got = {name: flush.LAUNCHES[name],
            "bitonic_sort": tiled_sort.LAUNCHES["bitonic_sort"],
@@ -1080,14 +1186,14 @@ def phase_animation(torch, flush, tiled_sort, tit, write_image, Renderer,
     from cuburn_tpu_torch.ops.interp import pack_genome
     T = ANIM_SAMPLES
 
-    def renderer(backend="pallas_win", ftype="gaussian", samples=T,
+    def renderer(backend="auto", ftype="gaussian", samples=T,
                  frames=3, q=quality):
         return Renderer(spark(animated_spark, ftype), get_profile(
             "1080p", quality=q, temporal_samples=samples, fps=4.0,
             duration=frames / 4.0, hist_backend=backend))
 
     r = renderer()
-    check(r.backend == "pallas_win" and r.profile.batch == 1 << 17,
+    check(r.backend == "atomic" and r.profile.batch == 1 << 17,
           f"backend {r.backend}, batch {r.profile.batch}")
     times = r.frame_times()
     check(len(times) == 3, f"{len(times)} frames, expected 3")
@@ -1168,8 +1274,10 @@ def phase_animation(torch, flush, tiled_sort, tit, write_image, Renderer,
           png=[os.path.relpath(p, REPO) for p in pngs])
 
     # the split flush sums in a fixed order: overlapped == serial, bit
-    # for bit; the unsorted and the merged flush, one blurred frame each
+    # for bit; the windowed, the unsorted and the merged flush, one
+    # blurred frame each
     for backend, n_frames, q in (("pallas_rgb16", 2, quality),
+                                 ("pallas_win", 1, max(quality // 2, 1)),
                                  ("pallas", 1, max(quality // 2, 1)),
                                  ("pallas_merged", 1, max(quality // 2, 1))):
         rb = renderer(backend, frames=n_frames, q=q)
@@ -1179,6 +1287,8 @@ def phase_animation(torch, flush, tiled_sort, tit, write_image, Renderer,
         got = check_frame_launches(flush, tiled_sort, rb, a[0][1], n_frames,
                                    f"{n_frames} frames through {backend}")
         launches[FLUSH_KERNEL[backend]] += got[FLUSH_KERNEL[backend]]
+        if backend == "pallas_win":
+            launches["bitonic_sort"] += got["bitonic_sort"]
         fields = {}
         if backend == "pallas_rgb16":
             b, b_s = timed_frames(torch, rb.frames_overlapped(seed=1))
@@ -1248,7 +1358,7 @@ def partition_launches(flush, tiled_sort, r, stats, n_flushes, what):
     flushes = stats.total_iters // per_chunk
     check(flushes == n_flushes, f"{what}: {flushes} flushes, expected "
           f"{n_flushes}")
-    passes = 0 if r.backend == "pallas" else len(
+    passes = 0 if r.backend in UNSORTED else len(
         tiled_sort.bitonic_schedule(1 << (per_chunk - 1).bit_length()))
     got = {name: flush.LAUNCHES[name],
            "bitonic_sort": tiled_sort.LAUNCHES["bitonic_sort"],
@@ -1319,7 +1429,8 @@ def phase_partition(torch, flush, sort, tiled_sort, thist, tit, write_image,
 
     # (a) 1080p through pallas_win, whole frame then 4 stripes; the
     # records of a middle stripe's second flush are kept for timing
-    r = Renderer(full_feature(), get_profile("1080p", quality=half))
+    r = Renderer(full_feature(), get_profile("1080p", quality=half,
+                                             hist_backend="pallas_win"))
     check(r.backend == "pallas_win", f"backend {r.backend}")
     reset_launches(flush, tiled_sort)
     whole, sw = r.accumulate(0.0, seed=3)
@@ -1506,7 +1617,7 @@ def phase_partition(torch, flush, sort, tiled_sort, thist, tit, write_image,
     # (d) motion blur with both partitions
     rd = Renderer(spark(animated_spark), get_profile(
         "1080p", quality=quarter, temporal_samples=ANIM_SAMPLES, fps=4.0,
-        duration=0.25))
+        duration=0.25, hist_backend="pallas_win"))
     check(len(rd.frame_times()) == 1, "10d: expected one frame")
     reset_launches(flush, tiled_sort)
     (plain,) = list(rd.frames(seed=1))
@@ -1625,7 +1736,7 @@ def world_1_rank(rank, device, quality):
     from cuburn_tpu_torch.parallel.shard import ShardedRenderer
     from cuburn_tpu_torch.profile import get_profile
     from cuburn_tpu_torch.render import Renderer
-    prof = get_profile("1080p", quality=quality)
+    prof = get_profile("1080p", quality=quality, hist_backend="pallas_win")
     one = Renderer(full_feature(), prof, device)
     sh = ShardedRenderer(full_feature(), prof, device)
     check(sh.backend == "pallas_win" and sh.n_devices == 1,
@@ -1922,8 +2033,9 @@ def phase_tuner(torch, flush, tiled_sort, Renderer, full_feature,
     """The tuner at its --quick sizes, `chunks` chunks a race (phase
     12a): it races every row twice in turns and keeps only picks that
     lead by more than a row moved between the passes.  The record is gated to this card, every
-    race row numeric in both passes, l2_bytes the card's; win_flush, the
-    split flush and the sort were launched during the race.  Then a
+    race row numeric in both passes, l2_bytes the card's; win_flush,
+    packed_flush, the split flush and the sort were launched during the
+    race.  Then a
     1080p Renderer applies the record's tiled keys, the same record
     with its picks set (pallas_rgb16, 2^23 records a tiled flush) moves
     the Renderer to them, and the repo's TPU record is skipped."""
@@ -1950,15 +2062,15 @@ def phase_tuner(torch, flush, tiled_sort, Renderer, full_feature,
           f"tune record for {rec['device']!r}, this card is {kind!r}")
     check(rec["l2_bytes"] == l2, f"l2_bytes {rec['l2_bytes']} != {l2}")
     m, passes = rec["measurements"], rec["passes"]
-    check(len(m) == 11 and all(isinstance(v, (int, float)) and v > 0
+    check(len(m) == 13 and all(isinstance(v, (int, float)) and v > 0
                                for v in m.values()),
           f"retune: race rows {m}")
     check(set(passes) == set(m) and all(
         len(rs) == 2 and all(isinstance(v, (int, float)) and v > 0
                              for v in rs) for rs in passes.values()),
           f"retune: passes {passes}")
-    for name in ("win_flush", "win_flush_rgb16", "bitonic_sort",
-                 "chaos_iterate"):
+    for name in ("win_flush", "packed_flush", "win_flush_rgb16",
+                 "bitonic_sort", "chaos_iterate"):
         check(launches[name] > 0, f"retune launched no {name}")
     picks = {key: rec.get(key) for key in (
         "hist_backend", "hist_backend_tiled", "flush_records",
@@ -1998,7 +2110,7 @@ def phase_tuner(torch, flush, tiled_sort, Renderer, full_feature,
                     ipc = max(ipc, want["tiled_flush_records"] // prof.batch)
                 said = "applying tune record"
             else:
-                backend, ipc, said = "pallas_win", 32, "skipped"
+                backend, ipc, said = "atomic", 32, "skipped"
             check(r.backend == backend and r.profile.iters_per_chunk == ipc
                   and said in err.getvalue(),
                   f"under {rec_path}: backend {r.backend}, iters_per_chunk "
@@ -2060,9 +2172,9 @@ def phase_trace(torch, flush, tiled_sort, quality=10):
                 check(counts[name] == n,
                       f"the trace holds {counts[name]} {name} kernel "
                       f"events, the counters {n} launches")
-            check(launches["win_flush"] > 0 and
-                  launches["bitonic_sort"] > 0 and
-                  launches["chaos_iterate"] > 0,
+            check(launches["packed_flush"] > 0 and
+                  launches["bitonic_sort"] == 0 and
+                  launches["chaos_iterate"] == launches["packed_flush"],
                   f"the traced render launched {launches}")
             run.update(trace_mb=os.path.getsize(trace) / 1e6,
                        kernel_events=n_kernels, events=n_events,
@@ -2243,7 +2355,7 @@ def phase_chaos(torch, flush, tiled_sort, Renderer, full_feature,
     from cuburn_tpu_torch.ops import iterate as it
     from cuburn_tpu_torch.kernels import build
     r = Renderer(full_feature(), get_profile("1080p", quality=quality))
-    check(r.backend == "pallas_win" and
+    check(r.backend == "atomic" and
           r.profile.iters_per_chunk == CHAOS_STEPS,
           f"backend {r.backend}, {r.profile.iters_per_chunk} steps a chunk")
     check((chaos.LIBRARY, chaos.key_defines(r.key)) in build._LOADED,
@@ -2343,7 +2455,8 @@ def phase_chaos(torch, flush, tiled_sort, Renderer, full_feature,
     reset_launches(flush, tiled_sort)
     hist, st = r1k.accumulate(0.0, seed=3)
     n = launches_now(flush, tiled_sort)
-    check(n["chaos_iterate"] == n["win_flush"] > 0,
+    check(n["chaos_iterate"] == n["packed_flush"] > 0
+          and n["bitonic_sort"] == 0,
           f"chaos: the q1000 still launched {n}")
     check(bool(torch.isfinite(hist).all()), "q1000: non-finite histogram")
     mass = float(hist[:-1, 3].double().sum())
@@ -2642,7 +2755,7 @@ def phase_bench(torch, flush, tiled_sort, kind):
           f"the headline's differential: {ex['mass_parity']}, "
           f"{ex['max_bin_err_density']}")
     check(all(ex[k] is not None for k in KEYS_1080P)
-          and ex["backend_1080p"] == "pallas_win",
+          and ex["backend_1080p"] == "atomic",
           f"the headline's 1080p run: {[ex[k] for k in KEYS_1080P]}")
     n, batch = ex["chunks"], sizes(False)[1]
     passes = len(tiled_sort.bitonic_schedule(batch * ex["iters_per_chunk"]))
@@ -2666,7 +2779,7 @@ def phase_bench(torch, flush, tiled_sort, kind):
     check(got == BENCH_CONFIGS and len(lines) == 6
           and lines[-1]["failed"] == [],
           f"configs: {got} against {BENCH_CONFIGS}; {lines[-1]}")
-    check(all(r["plotted_samples"] > 0 and r["backend"] == "pallas_win"
+    check(all(r["plotted_samples"] > 0 and r["backend"] == "atomic"
               for r in recs.values()), f"configs: {recs}")
     phase(15, "bench", tool="configs",
           seconds=round(time.perf_counter() - t0, 3))
@@ -2799,9 +2912,11 @@ def main(argv=None) -> int:
     launches.update(main_launches)
     phase_flush_mix(torch, flush, sort, thist, real_flushes, n_bins,
                     acc_width,
-                    tit.record_bits(main_r.key, main_r.cam, "pallas_win",
+                    tit.record_bits(main_r.key, main_r.cam, main_r.backend,
                                     main_r.op_bits)[1])
     del real_flushes
+    phase_default_flush(torch, flush, tit, thist, Renderer, get_profile,
+                        RenderProfile, full_feature, animated_spark)
     for genome in (sierpinski, full_feature):
         phase_parity(torch, Renderer, RenderProfile, genome())
 
@@ -2814,12 +2929,19 @@ def main(argv=None) -> int:
         torch, tiled_sort)
     del main_r
     half = max(args.quality // 2, 1)
-    for name in RENDER_BACKENDS:
-        launches[name] = phase_render_backend(
+    # a still's launches: packed_flush through auto's backend (phase 4),
+    # every other flush kernel through its own, the sort through
+    # pallas_win's
+    for backend in STILL_BACKENDS:
+        got = phase_render_backend(
             torch, flush, tiled_sort, tit, Renderer, full_feature(),
-            get_profile, name, half)
-    for backend in ("pallas", "pallas_merged", "pallas_rgb16", "scatter",
-                    "scatter_sorted", "sortcum"):
+            get_profile, backend, half)
+        if backend != "pallas":
+            launches[FLUSH_KERNEL[backend]] = got[FLUSH_KERNEL[backend]]
+        if backend == "pallas_win":
+            launches["bitonic_sort"] = got["bitonic_sort"]
+    for backend in ("pallas", "pallas_merged", "pallas_rgb16", "atomic",
+                    "scatter", "scatter_sorted", "sortcum"):
         phase_parity(torch, Renderer, RenderProfile, full_feature(),
                      backend, phase_no=8)
     phase_parity(torch, Renderer, RenderProfile, spark(animated_spark),

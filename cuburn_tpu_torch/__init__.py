@@ -11,8 +11,11 @@ every Pallas kernel of the JAX package has a hand-written CUDA
 counterpart for sm_90a in `csrc/`, built at first use by
 `kernels/build.py`:
 
-  win_flush.cu        windowed flush (backend pallas_win, the default)
-  scatter_flush.cu    atomic flushes (backends pallas, pallas_merged)
+  win_flush.cu        windowed flush (backend pallas_win)
+  scatter_flush.cu    atomic flushes (backends pallas, pallas_merged,
+                      and the port's own atomic, the default: pallas's
+                      flush on pallas_win's 8-bit records, unsorted; a
+                      TPU has no scatter-add, so JAX has no counterpart)
   win_flush_rgb16.cu  windowed flush into f32 density + bf16 rgb
                       (backend pallas_rgb16)
   bitonic_sort.cu     tiled bitonic sort (ops/tiled_sort.py)

@@ -68,7 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hist-backend",
                    choices=["auto", "scatter", "scatter_sorted",
                             "sortcum", "pallas", "pallas_merged",
-                            "pallas_win", "pallas_rgb16"],
+                            "pallas_win", "pallas_rgb16", "atomic"],
                    help="histogram accumulation backend")
     p.add_argument("--no-de", action="store_true",
                    help="disable density-estimation filtering")

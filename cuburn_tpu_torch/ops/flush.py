@@ -9,8 +9,14 @@ raises.
   backend        wrapper                    kernel (csrc/)
   pallas_win     accumulate_windowed        win_flush.cu
   pallas         accumulate_packed          scatter_flush.cu (packed)
+  atomic         accumulate_packed          scatter_flush.cu (packed)
   pallas_merged  accumulate_merged          scatter_flush.cu (merged)
   pallas_rgb16   accumulate_windowed_rgb16  win_flush_rgb16.cu
+
+`atomic` is the port's own backend and the card's default: the flush of
+`pallas` on `pallas_win`'s records (8 colour bits, ops/iterate.py
+record_bits), unsorted.  The JAX package has none, since a TPU has no
+scatter-add.
 
 On a CUDA tensor `accumulate_packed` is one launch over the unsorted
 records (the junk bin's rows summed per block, equal addresses per
@@ -226,7 +232,8 @@ def accumulate_packed(hist, packed_records, palette_hi, n_bins: int,
                       color_bits: int, weight=None):
     """Flush unsorted packed records into the logical histogram IN
     PLACE: each record adds weight * pal4[q] into bin addr, in no
-    particular order (`accumulate_packed_pallas`, backend `pallas`).
+    particular order (`accumulate_packed_pallas`, backends `pallas` and
+    `atomic`).
     CUDA tensors launch scatter_flush.cu's packed entry once: a block
     sums its junk-bin rows into one float4 atomicAdd, a warp the rows
     of lanes with equal addresses, every other record adds its own.

@@ -12,7 +12,7 @@ then index_add_) and `sortcum` (sort, float64 prefix sums, run-end
 placement, running max, difference: no scatter-add at all).  None is a
 kernel.  Every backend updates `hist` in place and returns it.  The
 flushes of packed records (`pallas`, `pallas_merged`, `pallas_win`,
-`pallas_rgb16`) live in `ops/flush.py`.
+`pallas_rgb16`, `atomic`) live in `ops/flush.py`.
 """
 
 from __future__ import annotations

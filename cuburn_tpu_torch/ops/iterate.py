@@ -234,27 +234,33 @@ def iterate_step(key: StructureKey, cam: CameraSpec, fuse: int, params,
 
 
 # packed-record flushes by backend (ops/flush.py); the others go
-# through ops/histogram.py on unpacked (addr, rgba) rows
+# through ops/histogram.py on unpacked (addr, rgba) rows.  `atomic` is
+# the port's own: `pallas`'s unsorted flush on `pallas_win`'s 8-bit
+# records.  The JAX package has no counterpart, since a TPU has no
+# scatter-add; on the card it is the default (render.Renderer).
 PACKED_FLUSHES = {
     "pallas": flush_mod.accumulate_packed,
     "pallas_merged": flush_mod.accumulate_merged,
     "pallas_win": flush_mod.accumulate_windowed,
     "pallas_rgb16": flush_mod.accumulate_windowed_rgb16,
+    "atomic": flush_mod.accumulate_packed,
 }
-WINDOWED = ("pallas_win", "pallas_rgb16")
+# the backends whose records carry at most 8 colour bits
+EIGHT_BIT = ("pallas_win", "pallas_rgb16", "atomic")
 
 
 def record_bits(key: StructureKey, cam: CameraSpec, backend: str,
                 op_bits: int = 0):
     """(color bits, total bits below the address) of the packed
     records: the opacity-extended split when op_bits, else
-    color_bits_for, capped at 8 for the windowed flushes (flam3's native
-    palette resolution; also keeps records bit-identical to JAX's)."""
+    color_bits_for, capped at 8 for the windowed flushes and `atomic`
+    (flam3's native palette resolution; also keeps records
+    bit-identical to JAX's `pallas_win`)."""
     if op_bits:
         _ob, cbits = opacity_bits_for(cam.layout_bins, key.n_xforms)
         return cbits, op_bits + cbits
     cbits = color_bits_for(cam.layout_bins)
-    if backend in WINDOWED and cbits:
+    if backend in EIGHT_BIT and cbits:
         cbits = min(cbits, 8)
     return cbits, cbits
 
@@ -350,8 +356,8 @@ def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
     flush.  The plotted count stays unweighted.
 
     `backend` is a packed-record flush of ops/flush.py (`pallas`,
-    `pallas_merged`, `pallas_win`, or `pallas_rgb16` on the split
-    layout of hist_alloc_for) or an ops/histogram.py backend on
+    `pallas_merged`, `pallas_win`, `atomic`, or `pallas_rgb16` on the
+    split layout of hist_alloc_for) or an ops/histogram.py backend on
     unpacked rows (`scatter`, `scatter_sorted`, `sortcum`).  `op_bits`
     enables the opacity-extended record.
 

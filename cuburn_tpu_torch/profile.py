@@ -31,7 +31,7 @@ class RenderProfile:
     # flush size (its tiled one for a histogram past L2), else 32
     # (render.py _resolve_iters_per_chunk).
     iters_per_chunk: int = 0
-    hist_backend: str = "auto"   # auto | scatter | sortcum | pallas | pallas_merged | pallas_win | pallas_rgb16 (auto picks pallas_win on a GPU, scatter on the CPU)
+    hist_backend: str = "auto"   # auto | scatter | sortcum | pallas | pallas_merged | pallas_win | pallas_rgb16 | atomic (auto picks atomic on a GPU, scatter on the CPU)
     de_enabled: bool = True
     transparent: bool = False
     fps: float = 24.0

@@ -63,8 +63,9 @@ from cuburn_tpu_torch.profile import RenderProfile
 from cuburn_tpu_torch.utils import trace
 from cuburn_tpu_torch.utils.timing import sync
 
-# every histogram backend of the JAX package: the packed-record
-# flushes of ops/flush.py and the XLA backends of ops/histogram.py
+# every histogram backend of the JAX package, and the port's own
+# `atomic`: the packed-record flushes of ops/flush.py and the XLA
+# backends of ops/histogram.py
 BACKENDS = (*PACKED_FLUSHES, *hist_mod.BACKENDS)
 # Records per flush = batch * iters_per_chunk.  The JAX package's
 # default; retune.py's sweep on an H100 found the flush size flat within
@@ -72,7 +73,8 @@ BACKENDS = (*PACKED_FLUSHES, *hist_mod.BACKENDS)
 DEFAULT_ITERS_PER_CHUNK = 32
 # the backends a tune record may choose for `auto` (retune.py races
 # these)
-TUNED_BACKENDS = ("scatter", "scatter_sorted", "pallas_win", "pallas_rgb16")
+TUNED_BACKENDS = ("scatter", "scatter_sorted", "pallas_win", "pallas_rgb16",
+                  "atomic")
 # where a tune record is read from when CUBURN_TUNE_FILE is unset: a
 # name of the port's own, so a record of the JAX package's tuner in the
 # same directory is never overwritten by this one's
@@ -474,15 +476,16 @@ class Renderer:
     `device` defaults to CUDA and raises when there is no GPU; the
     CPU runs only when asked for by name ("cpu").  The histogram
     backend follows the JAX package's names (`BACKENDS`): `auto` is
-    `pallas_win` (the windowed flush, a CUDA kernel) on a GPU and
-    `scatter` on the CPU, unless a tune record for this GPU
+    `atomic` (the unsorted flush, a CUDA kernel, on `pallas_win`'s
+    8-bit records; the port's own, as a TPU has no scatter-add) on a
+    GPU and `scatter` on the CPU, unless a tune record for this GPU
     (`_load_tune`, written by retune.py) picks another; the record
     can also set the flush size.  Each `pallas*` backend launches its CUDA
     kernel on a GPU and runs the kernel's plain version on the CPU.
     A frame whose records do not pack into 32 bits (`packed` False)
     accumulates full records through `scatter`, as the JAX package
-    does: `auto` is `scatter` there, and a `pallas*` backend warns and
-    becomes `scatter`."""
+    does: `auto` is `scatter` there, and a `pallas*` or `atomic`
+    backend warns and becomes `scatter`."""
 
     def __init__(self, genome: Genome, profile: RenderProfile,
                  device: torch.device | str | None = None):
@@ -539,7 +542,7 @@ class Renderer:
         if backend == "auto":
             # a tune record's choice, per geometry (hist_backend_tiled
             # where the histogram is past L2), on a GPU only; else the
-            # windowed flush on a GPU and scatter on the CPU
+            # unsorted flush on a GPU and scatter on the CPU
             tiled = histogram_tiled(self.cam.n_bins, self.device)
             choice = ((tune.get("hist_backend_tiled") if tiled else None)
                       or tune.get("hist_backend"))
@@ -548,7 +551,7 @@ class Renderer:
                 if backend in PACKED_FLUSHES and not self.packed:
                     backend = "scatter"
             else:
-                backend = ("pallas_win"
+                backend = ("atomic"
                            if self.device.type == "cuda" and self.packed
                            else "scatter")
         elif backend not in BACKENDS:

@@ -4,13 +4,16 @@ choices on the card it runs on.
 The port's counterpart of `cuburn_tpu/retune.py`:
 
   1. races the histogram backends (scatter / scatter_sorted /
-     pallas_win, and pallas_rgb16 where the histogram is tiled)
+     pallas_win / atomic, and pallas_rgb16 where the histogram is
+     tiled)
      in-loop, chained, at two histogram sizes: 512x512, and
      `TILED_DIMS`, the main path's 1080p-ss2 accumulator, whose
      histogram is past the card's L2 cache (render.histogram_tiled)
-  3. sweeps the flush size K (records per sort+flush = B*K) at 512x512
-     3b. and at the tiled size, escalating until the card runs out of
-     memory
+  3. sweeps the flush size K (records per flush = B*K) at 512x512
+     through the default backend
+     3b. and at the tiled size through pallas_win (the record's
+     `tiled_flush_records` applies to the windowed flushes only),
+     escalating until the card runs out of memory
 
 Every race row runs twice, the whole list once and then again (in
 turns, so a drift of the host's clock spreads over all rows), and both
@@ -18,7 +21,7 @@ rates are kept (`passes`).  The largest relative move of any row
 between its passes is the race's own noise (`spread`).  A pick
 replaces the built-in default only where its mean leads the default's
 by more than that (`stands_out`); otherwise the record keeps the
-default backend (pallas_win) and leaves the flush-size key out, so the
+default backend (atomic) and leaves the flush-size key out, so the
 Renderer keeps its built-in flush size.  The gate sees the noise of
 one run only: on an H100 the rows moved up to 16% between passes, and
 a backend pick that stood in one run did not stand in the next three
@@ -61,12 +64,12 @@ import torch
 # (8.63 M bins, 138 MB), which is past it
 UNTILED_DIMS = (512, 512)
 TILED_DIMS = (3896, 2216)
-CANDIDATES = ("scatter", "scatter_sorted", "pallas_win")
+CANDIDATES = ("scatter", "scatter_sorted", "pallas_win", "atomic")
 TILED_CANDIDATES = CANDIDATES + ("pallas_rgb16",)
 RGB16_PROMOTE_MARGIN = 1.05
 # what `auto` takes on the card without a record: the reference a pick
 # must stand out from
-DEFAULT_BACKEND = "pallas_win"
+DEFAULT_BACKEND = "atomic"
 PASSES = 2
 
 
@@ -208,7 +211,7 @@ def main(argv=None) -> int:
     k_ref = DEFAULT_ITERS_PER_CHUNK
     k_list = (32, 64) if args.quick else (16, 32, 64, 128, 256)
     k_tiled = (32, 256) if args.quick else (32, 64, 128, 256, 512)
-    rows += [(f"K={k}", UNTILED_DIMS, "pallas_win", k,
+    rows += [(f"K={k}", UNTILED_DIMS, DEFAULT_BACKEND, k,
               max(1, n_chunks * 64 // k)) for k in k_list]
     rows += [(f"K_tiled={k}", TILED_DIMS, "pallas_win", k,
               max(1, n_chunks * 64 // k)) for k in k_tiled]

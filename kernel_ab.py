@@ -101,7 +101,8 @@ def render_flushes(torch):
     from cuburn_tpu_torch.ops import iterate as tit
     from cuburn_tpu_torch.profile import get_profile
     from cuburn_tpu_torch.render import Renderer
-    r = Renderer(full_feature(), get_profile("1080p", quality=32))
+    r = Renderer(full_feature(), get_profile("1080p", quality=32,
+                                             hist_backend="pallas_win"))
     flushes, win = [], tit.PACKED_FLUSHES["pallas_win"]
 
     def keep(hist, recs, *args):

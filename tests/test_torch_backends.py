@@ -17,7 +17,11 @@ Contracts:
   plain versions launch no kernel;
 - every backend renders: by TV distance against the JAX Renderer under
   2x JAX's two-seed floor, and on the same seed its density equals
-  `pallas_win`'s bit for bit.
+  `pallas_win`'s bit for bit;
+- `atomic`, the port's own backend (no JAX counterpart: a TPU has no
+  scatter-add), packs `pallas_win`'s records in every geometry and
+  flushes them unsorted into the same histogram: density exact at
+  weight 1, rgb within float32 reassociation.
 """
 
 import ctypes
@@ -43,6 +47,7 @@ from cuburn_tpu.profile import RenderProfile  # noqa: E402
 from cuburn_tpu_torch import main as tmain  # noqa: E402
 from cuburn_tpu_torch import params as tparams  # noqa: E402
 from cuburn_tpu_torch import render as trender  # noqa: E402
+from cuburn_tpu_torch.genome.spline import Spline as TSpline  # noqa: E402
 from cuburn_tpu_torch.kernels import build  # noqa: E402
 from cuburn_tpu_torch.ops import flush  # noqa: E402
 from cuburn_tpu_torch.ops import histogram as thist  # noqa: E402
@@ -53,7 +58,7 @@ from cuburn_tpu_torch.profile import RenderProfile as TProfile  # noqa: E402
 
 N_BINS = 64 * 64
 NEW_BACKENDS = ("pallas", "pallas_merged", "pallas_rgb16", "scatter_sorted",
-                "sortcum")
+                "sortcum", "atomic")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -629,12 +634,94 @@ def test_record_bits_cap_windowed_backends_only():
     g = tparams.genome_from_jax(full_feature())
     r = trender.Renderer(g, TProfile(width=32, height=32), device="cpu")
     for backend in ("pallas_win", "pallas_rgb16", "pallas", "pallas_merged",
-                    "scatter"):
+                    "scatter", "atomic"):
         jb = jit_.color_bits_for(r.cam.layout_bins)
-        if backend in ("pallas_win", "pallas_rgb16"):
+        if backend in ("pallas_win", "pallas_rgb16", "atomic"):
             jb = min(jb, 8)
         assert tit.record_bits(r.key, r.cam, backend) == (jb, jb)
     assert tit.record_bits(r.key, r.cam, "pallas")[0] == 10
+    assert tit.record_bits(r.key, r.cam, "atomic")[0] == 8
+
+
+@pytest.mark.parametrize("n_bins", [32 * 32, 1310 * 750, 2 ** 22 - 2,
+                                    3896 * 2216, 2 ** 24 - 2])
+@pytest.mark.parametrize("n_xforms", [3, 7])
+def test_record_bits_atomic_packs_pallas_wins_records(n_bins, n_xforms):
+    """`atomic` caps its colour bits at 8 where `pallas` takes up to 10,
+    and packs the records of `pallas_win` in every geometry, the
+    opacity-extended split included."""
+    cam = SimpleNamespace(layout_bins=n_bins, n_bins=n_bins)
+    key = SimpleNamespace(n_xforms=n_xforms)
+    op_bits = tit.opacity_bits_for(n_bins, n_xforms)[0]
+    for ob in (0, op_bits):
+        assert tit.record_bits(key, cam, "atomic", ob) == \
+            tit.record_bits(key, cam, "pallas_win", ob)
+    cbits = tit.color_bits_for(n_bins)
+    assert tit.record_bits(key, cam, "atomic")[0] == min(cbits, 8)
+    assert tit.record_bits(key, cam, "pallas")[0] == cbits
+
+
+@pytest.mark.parametrize("cols,weight", [(3, None), (4, 0.37)])
+def test_atomic_flushes_as_pallas_win(cols, weight):
+    """The same records into the same histogram through `atomic` (no
+    sort) and `pallas_win` (sorted): density exact at weight 1 with a
+    3-column palette, every channel within float32 reassociation."""
+    rec = _i64(_records(21, 6000, 8))
+    pal = torch.as_tensor(_palette(22, 256, cols))
+    start = torch.as_tensor(_palette(23, N_BINS + 1, 4) * 50.0)
+    out = {}
+    for backend in ("atomic", "pallas_win"):
+        hist = start.clone()
+        got = tit.PACKED_FLUSHES[backend](hist, rec.clone(), pal, N_BINS, 8,
+                                          weight)
+        assert got is hist
+        out[backend] = hist
+    a, w = out["atomic"], out["pallas_win"]
+    assert not torch.equal(a, start)
+    if weight is None:
+        assert torch.equal(a[:, 3], w[:, 3])
+    torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-3)
+
+
+def _opacity_genome():
+    g = tparams.genome_from_jax(full_feature())
+    g.xforms[1].opacity = TSpline(0.5)
+    return g
+
+
+@pytest.mark.parametrize("genome", ["sierpinski", "full_feature",
+                                    "opacity"])
+def test_atomic_renders_pallas_wins_records(genome, monkeypatch):
+    """A CPU render through `atomic` flushes the very records
+    `pallas_win` flushes on the same seed (the same colour bits, the
+    same chaos game) into the same histogram: density equal bin for
+    bin, rgb within float32 reassociation."""
+    g = (_opacity_genome() if genome == "opacity" else
+         tparams.genome_from_jax({"sierpinski": sierpinski,
+                                  "full_feature": full_feature}[genome]()))
+    prof = dict(width=40, height=40, quality=20, batch=2048,
+                iters_per_chunk=8, fuse=16, de_enabled=False)
+    seen, out = {}, {}
+    for backend in ("atomic", "pallas_win"):
+        real = tit.PACKED_FLUSHES[backend]
+
+        def keep(hist, recs, palette_hi, n_bins, bits, weight=None,
+                 _b=backend, _real=real):
+            seen.setdefault(_b, []).append((recs.clone(), palette_hi, bits))
+            return _real(hist, recs, palette_hi, n_bins, bits, weight)
+        monkeypatch.setitem(tit.PACKED_FLUSHES, backend, keep)
+        r = trender.Renderer(g, TProfile(**prof, hist_backend=backend),
+                             device="cpu")
+        assert r.backend == backend
+        assert bool(r.op_bits) == (genome == "opacity")
+        out[backend], _ = r.accumulate(0.0, seed=5)
+    assert len(seen["atomic"]) == len(seen["pallas_win"]) > 1
+    for (ra, pa, ba), (rw, pw, bw) in zip(seen["atomic"],
+                                          seen["pallas_win"]):
+        assert ba == bw and torch.equal(ra, rw) and torch.equal(pa, pw)
+    a, w = out["atomic"], out["pallas_win"]
+    assert torch.equal(a[:, 3], w[:, 3])
+    torch.testing.assert_close(a[:, :3], w[:, :3], rtol=1e-4, atol=1e-4)
 
 
 def test_rgb16_resume_rounds_rgb_once(monkeypatch):

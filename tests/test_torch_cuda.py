@@ -19,7 +19,12 @@ the split flush; a striped frame's density equal to the whole frame's
 in every bin, its flush kernels launched once a flush in every stripe;
 a tune record for this card steers `auto` and the flush size and the
 repo's TPU record does not; the native output encoder is in use; a
-`--trace-dir` render's trace holds each hand kernel's launches.  The
+`--trace-dir` render's trace holds each hand kernel's launches.
+`auto` without a tune record is `atomic` on the card: a 1080p still
+through it launches no sort and one `packed_flush` a chunk, on the
+records `pallas_win` flushes; on a real second flush of that render
+`atomic` and `pallas_win` give density bit for bit and rgb within 1e-5
+of the bin's density.  The
 chaos-game kernel against the eager step loop, its plain version: every
 variation alone with its RNG words exact and (dx, dy) within rtol 1e-4,
 atol 1e-5 in >= 99.9% of points; chunks of the genomes of
@@ -65,6 +70,9 @@ from cuburn_tpu_torch.profile import RenderProfile  # noqa: E402
 N_BINS = 300 * 200
 
 pytestmark = pytest.mark.cuda
+
+# the backends that flush their records unsorted
+UNSORTED = ("pallas", "atomic")
 
 # wrapper, its plain version and its LAUNCHES key, per logical flush
 FLUSHES = {
@@ -598,7 +606,7 @@ def test_flush_raises_when_build_fails(cuda, monkeypatch):
 @pytest.mark.parametrize("backend,name", [
     ("pallas_win", "win_flush"), ("pallas", "packed_flush"),
     ("pallas_merged", "merged_flush"),
-    ("pallas_rgb16", "win_flush_rgb16")])
+    ("pallas_rgb16", "win_flush_rgb16"), ("atomic", "packed_flush")])
 def test_render_goes_through_kernel(cuda, backend, name):
     prof = RenderProfile(width=128, height=128, quality=20, batch=8192,
                          hist_backend=backend)
@@ -610,15 +618,100 @@ def test_render_goes_through_kernel(cuda, backend, name):
     img, stats = r.render_frame(0.0, seed=1)
     assert flush.LAUNCHES[name] > 0
     # every sorted flush sorts with the kernel, one launch a pass
-    assert (tiled_sort.LAUNCHES["bitonic_sort"] > 0) == (backend != "pallas")
+    assert (tiled_sort.LAUNCHES["bitonic_sort"] > 0) == \
+        (backend not in UNSORTED)
     assert img.shape == (128, 128, 4) and img[..., :3].any()
     assert stats.plotted_samples > 0
     assert chaos.LAUNCHES["chaos_iterate"] > 0
 
 
 def test_auto_backend_is_the_windowed_kernel(cuda):
+    """`auto` without a tune record: the unsorted flush on the windowed
+    flush's records (`atomic`), which took the default from
+    `pallas_win`."""
     prof = RenderProfile(width=32, height=32, quality=5, batch=1024)
-    assert trender.Renderer(sierpinski(), prof).backend == "pallas_win"
+    assert trender.Renderer(sierpinski(), prof).backend == "atomic"
+
+
+@pytest.fixture(scope="module")
+def default_still():
+    """A full_feature 1080p still at quality 10 through `auto` and again
+    through `pallas_win`, from one seed, with no tune record: each
+    backend's flush records and launches, and each histogram."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    from cuburn_tpu_torch.profile import get_profile
+    out = {}
+    for asked in ("auto", "pallas_win"):
+        r = trender.Renderer(full_feature(),
+                             get_profile("1080p", quality=10,
+                                         hist_backend=asked))
+        real, seen = tit.PACKED_FLUSHES[r.backend], []
+
+        def keep(hist, recs, palette_hi, n_bins, bits, weight=None):
+            seen.append((recs.clone(), palette_hi.clone(), bits))
+            return real(hist, recs, palette_hi, n_bins, bits, weight)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setitem(tit.PACKED_FLUSHES, r.backend, keep)
+            before = (dict(flush.LAUNCHES),
+                      tiled_sort.LAUNCHES["bitonic_sort"],
+                      chaos.LAUNCHES["chaos_iterate"])
+            hist, stats = r.accumulate(0.0, seed=7)
+        launches = {k: v - before[0][k] for k, v in flush.LAUNCHES.items()}
+        launches["bitonic_sort"] = \
+            tiled_sort.LAUNCHES["bitonic_sort"] - before[1]
+        launches["chaos_iterate"] = \
+            chaos.LAUNCHES["chaos_iterate"] - before[2]
+        out[asked] = dict(renderer=r, records=seen, launches=launches,
+                          hist=hist, stats=stats)
+    return out
+
+
+def test_default_still_flushes_unsorted(cuda, default_still):
+    """A 1080p still through `auto` resolves to `atomic`: no sort pass,
+    one packed_flush a chunk and no other flush, on the very records
+    (colour bits, chaos-kernel output) that `pallas_win` flushes; the
+    density equals `pallas_win`'s in every bin."""
+    a, w = default_still["auto"], default_still["pallas_win"]
+    assert a["renderer"].backend == "atomic"
+    assert trender.histogram_tiled(a["renderer"].cam.n_bins, cuda)
+    chunks = a["launches"]["chaos_iterate"]
+    assert chunks == len(a["records"]) > 1
+    assert a["launches"] == {"win_flush": 0, "packed_flush": chunks,
+                             "merged_flush": 0, "win_flush_rgb16": 0,
+                             "bitonic_sort": 0, "chaos_iterate": chunks}
+    assert w["launches"]["win_flush"] == chunks
+    assert w["launches"]["bitonic_sort"] > 0
+    assert len(w["records"]) == chunks
+    for (ra, pa, ba), (rw, pw, bw) in zip(a["records"], w["records"]):
+        assert ba == bw == 8
+        assert torch.equal(ra, rw) and torch.equal(pa, pw)
+    assert a["stats"].plotted_samples == w["stats"].plotted_samples > 0
+    assert torch.equal(a["hist"][:, 3], w["hist"][:, 3])
+
+
+def test_atomic_matches_pallas_win_on_a_real_flush(cuda, default_still):
+    """The second flush of the 1080p render (the first past the fuse
+    steps) into zeroed histograms through `atomic` and `pallas_win`:
+    density bit for bit, rgb within 1e-5 of the bin's density plus the
+    float32 rounding of summing the bin's records one by one (density x
+    2^-24 of the sum), since the atomics add in no fixed order."""
+    r = default_still["auto"]["renderer"]
+    recs, pal, bits = default_still["auto"]["records"][1]
+    out = {}
+    for backend in ("atomic", "pallas_win"):
+        hist = thist.alloc(r.cam.n_bins, cuda)
+        tit.PACKED_FLUSHES[backend](hist, recs.clone(), pal, r.cam.n_bins,
+                                    bits)
+        out[backend] = hist
+    a, w = out["atomic"], out["pallas_win"]
+    assert float(w[:-1, 3].sum()) > 0.9 * recs.numel()
+    assert torch.equal(a[:, 3], w[:, 3])
+    err = (a[:, :3] - w[:, :3]).abs()
+    dens = w[:, 3:].clamp(min=1.0)
+    assert bool((err <= 1e-5 * dens + dens * 2.0 ** -24 * w[:, :3].abs())
+                .all())
 
 
 @pytest.mark.parametrize("genome", [sierpinski, full_feature])
@@ -785,7 +878,7 @@ def test_overlapped_frames_within_one_lsb_through_win_flush(cuda):
 @pytest.mark.parametrize("backend,name", [
     ("pallas_win", "win_flush"), ("pallas", "packed_flush"),
     ("pallas_merged", "merged_flush"),
-    ("pallas_rgb16", "win_flush_rgb16")])
+    ("pallas_rgb16", "win_flush_rgb16"), ("atomic", "packed_flush")])
 def test_striped_render_equals_whole_frame(cuda, backend, name):
     """Every stripe's flushes launch the kernel with the stripe's own
     bin count as the junk bin; density (integer counts at weight 1.0) is
@@ -806,7 +899,7 @@ def test_striped_render_equals_whole_frame(cuda, backend, name):
     passes = len(tiled_sort.bitonic_schedule(
         1 << (per_chunk - 1).bit_length()))
     assert tiled_sort.LAUNCHES["bitonic_sort"] == \
-        (0 if backend == "pallas" else flushes * passes)
+        (0 if backend in UNSORTED else flushes * passes)
     assert torch.equal(whole[:-1, 3], striped[:-1, 3])
     assert float(striped[-1].abs().sum()) == 0.0
     err = (whole[:-1, :3] - striped[:-1, :3]).abs()
@@ -886,7 +979,7 @@ def test_tune_record_for_this_card_steers_auto(cuda, tmp_path, monkeypatch):
     monkeypatch.setenv("CUBURN_TUNE_FILE",
                        os.path.join(repo, "cuburn_tune.json"))
     r = trender.Renderer(full_feature(), big)
-    assert r.backend == "pallas_win"
+    assert r.backend == "atomic"
     assert r.profile.iters_per_chunk == trender.DEFAULT_ITERS_PER_CHUNK
 
 
@@ -912,7 +1005,8 @@ def test_trace_dir_holds_the_hand_kernels(cuda, tmp_path):
     tiled_sort.LAUNCHES["bitonic_sort"] = 0
     chaos.LAUNCHES["chaos_iterate"] = 0
     assert tmain.main(["gallery:full_feature", "--width", "256", "--height",
-                       "256", "--quality", "20", "-o",
+                       "256", "--quality", "20", "--hist-backend",
+                       "pallas_win", "-o",
                        str(tmp_path / "t.png"), "--trace-dir",
                        str(tmp_path / "tr")]) == 0
     counts = {"win_flush": flush.LAUNCHES["win_flush"],

@@ -171,10 +171,20 @@ def test_parser_matches_jax():
     def options(parser):
         return {a.dest: (tuple(a.option_strings), a.default, a.choices)
                 for a in parser._actions}
-    assert options(tmain.build_parser()) == options(jmain.build_parser())
+    ours, theirs = options(tmain.build_parser()), options(jmain.build_parser())
+    # --hist-backend takes the port's own `atomic` (the card's default;
+    # a TPU has no scatter-add) beside every choice of the JAX package
+    flags, default, choices = ours.pop("hist_backend")
+    jflags, jdefault, jchoices = theirs.pop("hist_backend")
+    assert (flags, default) == (jflags, jdefault)
+    assert list(choices) == [*jchoices, "atomic"]
+    assert ours == theirs
     args = tmain.build_parser().parse_args(
         ["g.flam3", "--hist-backend", "pallas_merged", "--quality", "3"])
     assert args.hist_backend == "pallas_merged" and args.quality == 3
+    args = tmain.build_parser().parse_args(
+        ["g.flam3", "--hist-backend", "atomic"])
+    assert args.hist_backend == "atomic"
 
 
 def test_genome_loader_and_records_match_jax(capsys):

@@ -161,6 +161,26 @@ def test_cpu_record_applies_and_auto_stays_scatter(tmp_path, monkeypatch,
     assert "skipped" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("key", ["hist_backend", "hist_backend_tiled"])
+def test_cpu_record_naming_atomic_leaves_auto_scatter(key, tmp_path,
+                                                      monkeypatch,
+                                                      fresh_tune, capsys):
+    """`atomic`, the card's default, is a backend a record may name; on
+    the CPU `auto` stays `scatter` under it, as under any record."""
+    assert "atomic" in trender.TUNED_BACKENDS
+    _write(tmp_path, monkeypatch, {"device": "cpu", key: "atomic"})
+    monkeypatch.setattr(trender, "histogram_tiled", lambda n, d: True)
+    r = trender.Renderer(sierpinski(), RenderProfile(**SMALL),
+                         device="cpu")
+    assert "applying tune record" in capsys.readouterr().err
+    assert r.backend == "scatter"
+    # named by the profile, it runs on the CPU as its plain version
+    r = trender.Renderer(sierpinski(), RenderProfile(**SMALL,
+                                                     hist_backend="atomic"),
+                         device="cpu")
+    assert r.backend == "atomic"
+
+
 def test_stale_record_warns_once_a_path(tmp_path, monkeypatch, fresh_tune,
                                         capsys):
     _write(tmp_path, monkeypatch, {
@@ -257,10 +277,10 @@ def test_retune_end_to_end_on_the_cpu(tmp_path, monkeypatch, fresh_tune,
     assert rec.get("tiled_flush_records", 0) % 512 == 0
     assert not any(k.startswith("sort_") for k in rec)
     assert "dim_cap" not in rec
-    # quick: 3 + 4 backend races, 2 K values, 2 tiled K values, each
+    # quick: 4 + 5 backend races, 2 K values, 2 tiled K values, each
     # the mean of its two passes
     m = rec["measurements"]
-    assert len(m) == 11
+    assert len(m) == 13
     assert all(isinstance(v, float) and v > 0 for v in m.values())
     assert set(rec["passes"]) == set(m)
     assert all(len(rs) == 2 and min(rs) <= m[row] <= max(rs)
@@ -280,12 +300,15 @@ def test_retune_end_to_end_on_the_cpu(tmp_path, monkeypatch, fresh_tune,
 
 
 # the tuner's races, M iters/s by (backend, tiled size, K): at 512x512
-# scatter_sorted leads pallas_win and K=64 leads K=32; at the tiled size
-# pallas_rgb16 leads past RGB16_PROMOTE_MARGIN and K=256 leads K=32
+# scatter_sorted leads atomic, the default, and K=64 leads K=32; at the
+# tiled size pallas_rgb16 leads past RGB16_PROMOTE_MARGIN and K=256
+# leads K=32
 _RATES = {("scatter", False, 64): 10.0, ("scatter_sorted", False, 64): 20.0,
-          ("pallas_win", False, 64): 12.0, ("pallas_win", False, 32): 8.0,
+          ("pallas_win", False, 64): 12.0, ("atomic", False, 64): 15.0,
+          ("atomic", False, 32): 10.0,
           ("scatter", True, 64): 5.0, ("scatter_sorted", True, 64): 6.0,
-          ("pallas_win", True, 64): 6.5, ("pallas_rgb16", True, 64): 9.0,
+          ("pallas_win", True, 64): 6.5, ("atomic", True, 64): 7.0,
+          ("pallas_rgb16", True, 64): 9.0,
           ("pallas_win", True, 32): 4.0, ("pallas_win", True, 256): 5.5}
 
 
@@ -293,7 +316,7 @@ _RATES = {("scatter", False, 64): 10.0, ("scatter_sorted", False, 64): 20.0,
     (0.1, {"hist_backend": "scatter_sorted",
            "hist_backend_tiled": "pallas_rgb16",
            "flush_records": 512 * 64, "tiled_flush_records": 512 * 256}),
-    (0.3, {"hist_backend": "pallas_win", "hist_backend_tiled": "pallas_win",
+    (0.3, {"hist_backend": "atomic", "hist_backend_tiled": "atomic",
            "flush_records": None, "tiled_flush_records": None}),
 ])
 def test_retune_picks_only_outside_the_spread(spread, picks, tmp_path,
@@ -311,14 +334,14 @@ def test_retune_picks_only_outside_the_spread(spread, picks, tmp_path,
                   iters=1):
         calls.append(backend)
         rate = _RATES[backend, cam.width == tretune.TILED_DIMS[0], K]
-        return rate * (1 - spread if len(calls) <= 11 else 1 + spread)
+        return rate * (1 - spread if len(calls) <= 13 else 1 + spread)
 
     monkeypatch.setenv("CUBURN_RETUNE_BATCH", "512")
     monkeypatch.setattr(tretune, "race", fake_race)
     out = tmp_path / "tune.json"
     assert tretune.main(["--cpu", "--quick", "--out", str(out)]) == 0
     rec = json.loads(out.read_text())
-    assert len(calls) == 22
+    assert len(calls) == 26
     assert rec["passes"]["scatter_sorted@512"] == [
         round(20.0 * (1 - spread), 3), round(20.0 * (1 + spread), 3)]
     assert rec["spread"] == pytest.approx((1 + spread) / (1 - spread) - 1,
