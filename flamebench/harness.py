@@ -12,6 +12,7 @@ from __future__ import annotations
 import gc
 import os
 import random
+import resource
 import statistics
 import subprocess
 import sys
@@ -32,6 +33,14 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "cuburn_tpu")
 PINNED_ENV = {"CUBURN_TUNE_FILE": os.path.join(spec.HERE, "no-tune-record",
                                                "none.json")}
 CLEARED_ENV = ("CUBURN_ITERS_PER_CHUNK", "CUBURN_DE_SKIP_EMPTY")
+# torch's intra-op threads in a run on the card.  The host's part of a
+# frame is one chain of small tensor ops and launches on the main thread,
+# which drives the card; a pool splits each op past torch's grain into a
+# parallel region, and its threads spin after every region and take CPU
+# time from the main thread.  On the H100 machine torch's default pool
+# of 8 spun 28-46 CPU seconds a 20 s window, and the more it spun, the
+# slower the run (PERF.md's findings).  One thread draws the same images.
+HOST_THREADS = 1
 SPAN = trace_mod.SPAN_PREFIX
 STRETCH = "stretch"
 GIB = float(1 << 30)
@@ -88,6 +97,12 @@ def pin_environment() -> None:
     for k in CLEARED_ENV:
         os.environ.pop(k, None)
     os.environ.update(PINNED_ENV)
+
+
+def host_cpu_s() -> Tuple[float, float]:
+    """This process's user and system CPU seconds so far."""
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    return ru.ru_utime, ru.ru_stime
 
 
 def profile_for(cell: spec.Cell, backend: Optional[str] = None):
@@ -348,9 +363,11 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     the plain versions, for tests at toy sizes."""
     import torch
     pin_environment()
+    cuda = device == "cuda"
+    if cuda:
+        torch.set_num_threads(HOST_THREADS)
     from cuburn_tpu_torch import models
     from cuburn_tpu_torch.render import Renderer
-    cuda = device == "cuda"
     renderer = Renderer(getattr(models, cell.config["genome"])(),
                         profile_for(cell), device=device)
     base = base_seed(seed)
@@ -371,8 +388,10 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
         tracer = Tracer(renderer, tr["skip_frames"], tr["frames"],
                         cell.traffic["driver"], cuda)
     sample = Sample(cell.check["frames"], base)
+    cpu0 = host_cpu_s()
     window = DRIVERS[cell.traffic["driver"]](
         renderer, cell, base, seconds, sample, tracer)
+    cpu1 = host_cpu_s()
     if cuda:
         torch.cuda.synchronize()
     window_peak = torch.cuda.max_memory_allocated() if cuda else 0
@@ -385,6 +404,9 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
         f"{statistics.median(window.frame_s):.6f} s, halves "
         f"{sum(window.frame_s[:half]):.3f} s and "
         f"{sum(window.frame_s[half:]):.3f} s")
+    log(f"host: {cpu1[0] - cpu0[0]:.3f} s user and {cpu1[1] - cpu0[1]:.3f} "
+        f"s system CPU over the window, {torch.get_num_threads()} "
+        f"intra-op thread(s)")
 
     del renderer, tracer
     gc.collect()
