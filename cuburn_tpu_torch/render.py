@@ -313,32 +313,40 @@ def _filter_band(hist_band, params, quality_per_cell, ss: int,
     after it.  Every stage is local (the DE's reach, the spatial
     filter's half-width), so a band with enough context rows gives the
     whole-frame filter's rows up to float reassociation.  Returns u8
-    rgba."""
+    rgba.  Each stage is a span of its own (`logscale`, `de`,
+    `downsample`, `colorclip`), nested in `filter` on the whole-frame
+    path (finalize_frame_device) and once a band on the banded one."""
     img = hist_band
     raw_density = img[..., 3]
-    img = logscale(img, params.brightness, quality_per_cell)
+    with trace.span("logscale"):
+        img = logscale(img, params.brightness, quality_per_cell)
     if de_on:
-        img = de_mod.density_filter(
-            img, raw_density,
-            params.estimator_radius * ss,
-            params.estimator_minimum * ss,
-            params.estimator_curve,
-            static_max_radius=de_static_r,
-            skip_empty=skip_empty)
+        with trace.span("de"):
+            img = de_mod.density_filter(
+                img, raw_density,
+                params.estimator_radius * ss,
+                params.estimator_minimum * ss,
+                params.estimator_curve,
+                static_max_radius=de_static_r,
+                skip_empty=skip_empty)
     img = img[de_rows[0]:img.shape[0] - de_rows[1]]
     if earlyclip:
-        img = colorclip(
-            img, params.gamma, params.vibrancy, params.highlight_power,
-            params.gamma_threshold, params.background, transparent)
-        img = downsample(img, ss, spatial_filter, filter_shape,
-                         gutter=(margin, gutter_x))
+        with trace.span("colorclip"):
+            img = colorclip(
+                img, params.gamma, params.vibrancy, params.highlight_power,
+                params.gamma_threshold, params.background, transparent)
+        with trace.span("downsample"):
+            img = downsample(img, ss, spatial_filter, filter_shape,
+                             gutter=(margin, gutter_x))
         img = torch.clamp(img, 0.0, 1.0)
     else:
-        img = downsample(img, ss, spatial_filter, filter_shape,
-                         gutter=(margin, gutter_x))
-        img = colorclip(
-            img, params.gamma, params.vibrancy, params.highlight_power,
-            params.gamma_threshold, params.background, transparent)
+        with trace.span("downsample"):
+            img = downsample(img, ss, spatial_filter, filter_shape,
+                             gutter=(margin, gutter_x))
+        with trace.span("colorclip"):
+            img = colorclip(
+                img, params.gamma, params.vibrancy, params.highlight_power,
+                params.gamma_threshold, params.background, transparent)
     return to_u8(img)
 
 

@@ -9,7 +9,10 @@ Contracts:
   across a yield;
 - the counters of a frame are the sites of the render path, counted
   the same on the CPU as on the card;
-- images are bit-equal with the profiler on and off.
+- images are bit-equal with the profiler on and off;
+- the filter's stages (`logscale`, `de`, `downsample`, `colorclip`) are
+  spans nested in `filter`, once each a frame, in a still and in
+  overlapped frames, and the null context without a profiler.
 """
 
 import collections
@@ -34,8 +37,9 @@ from cuburn_tpu_torch.ops import tiled_sort  # noqa: E402
 from cuburn_tpu_torch.profile import RenderProfile  # noqa: E402
 from cuburn_tpu_torch.utils import timing, trace  # noqa: E402
 
+STAGES = ("logscale", "de", "downsample", "colorclip")
 SPANS = ("params", "trajectories", "sample", "chunk", "sort", "count",
-         "filter", "readback", "sync")
+         "filter", "readback", "sync") + STAGES
 STILL = dict(width=32, height=24, quality=4, batch=1024,
              hist_backend="pallas_win")
 ANIM = dict(STILL, temporal_samples=4, duration=2 / 24.0)
@@ -209,6 +213,60 @@ def test_images_are_bit_equal_with_the_profiler_on_and_off():
         on = [img for img, _s in _overlapped(r, 2)]
     for a, b in zip(on, off):
         np.testing.assert_array_equal(a, b)
+
+
+def _stages_nest_in_filters(spans, frames):
+    """Each filter stage opens once a frame, inside a `filter` span,
+    and each `filter` span holds one of each."""
+    filters = [x for x in spans if x[0] == "filter"]
+    assert len(filters) == frames
+    for name in STAGES:
+        inner = [x for x in spans if x[0] == name]
+        assert len(inner) == frames, name
+        for f in filters:
+            assert sum(f[1] <= s and e <= f[2] for _n, s, e in inner) == 1
+
+
+def test_filter_stages_nest_in_the_filter_of_a_still(tmp_path):
+    r = trender.Renderer(get_genome("classic_swirl"),
+                         RenderProfile(**STILL), device="cpu")
+    assert r._de_on(r.genome.eval_at(0.0))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        r.render_frame(0.0, seed=3)
+        r.render_frame(0.0, seed=4)
+    _stages_nest_in_filters(_spans(_events(prof, tmp_path)), 2)
+
+
+def test_filter_stages_nest_in_the_filter_of_overlapped_frames(tmp_path):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _overlapped(_anim(), 2)
+    _stages_nest_in_filters(_spans(_events(prof, tmp_path)), 2)
+
+
+def test_filter_stages_without_a_profiler_are_the_null_context(
+        monkeypatch):
+    r = trender.Renderer(get_genome("classic_swirl"),
+                         RenderProfile(**STILL), device="cpu")
+    hist, _stats = r.accumulate(0.0, seed=3)
+    expected = r.finalize_frame(hist, 0.0)
+
+    def refuse(*a, **kw):
+        raise AssertionError("record_function entered")
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert all(trace.span(n) is trace._NULL for n in STAGES)
+    np.testing.assert_array_equal(r.finalize_frame(hist, 0.0), expected)
+
+
+def test_classic_swirl_is_bit_equal_with_the_profiler_on_and_off():
+    prof = RenderProfile(**dict(STILL, ss=2, quality=20))
+
+    def still():
+        return trender.Renderer(get_genome("classic_swirl"), prof,
+                                device="cpu").render_frame(0.0, seed=6)[0]
+    off = still()
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = still()
+    np.testing.assert_array_equal(on, off)
 
 
 def test_launch_counters_have_one_reader():
