@@ -316,6 +316,7 @@ TRACE_KERNELS = {
     "bitonic_sort": ("first_pass_kernel", "later_pass_kernel",
                      "global_pass_kernel"),
     "chaos_iterate": ("chaos_iterate_kernel",),
+    "plotted_fold": ("plotted_fold_kernel",),
     "bf16_roundtrip": ("bf16_roundtrip_kernel",),
     "rgb16_skeleton": ("rgb16_skeleton_kernel",),
 }
@@ -740,8 +741,10 @@ def phase_render(torch, flush, tiled_sort, tit, write_image, r, quality):
     kernels (the chaos game and packed_flush, no sort: auto is atomic)
     during render_frame, copies of the records of the first two flushes
     of a second pass, and the frame."""
+    from cuburn_tpu_torch.utils import trace
     check(r.backend == "atomic", f"backend {r.backend}, expected atomic")
     reset_launches(flush, tiled_sort)
+    looped = trace.COUNTS["looped_chunks"]
     img, stats = r.render_frame(0.0, seed=1)
     now = launches_now(flush, tiled_sort)
     launches = {name: now[name] for name in ("packed_flush", "chaos_iterate")}
@@ -749,6 +752,10 @@ def phase_render(torch, flush, tiled_sort, tit, write_image, r, quality):
         check(count > 0, f"the 1080p render launched no {name}")
     check(launches["chaos_iterate"] == launches["packed_flush"],
           f"{launches}: the chaos game not once a chunk")
+    check(now["plotted_fold"] == 1 and trace.COUNTS["looped_chunks"]
+          - looped == launches["chaos_iterate"],
+          f"{launches}, {now['plotted_fold']} plotted_fold: the chunks "
+          "not queued by one C call")
     for name in ("win_flush", "merged_flush", "win_flush_rgb16",
                  "bitonic_sort"):
         check(now[name] == 0, f"the 1080p render launched {name} "
@@ -767,7 +774,12 @@ def phase_render(torch, flush, tiled_sort, tit, write_image, r, quality):
     # plotted count (a second pass, after the launches are read).  The
     # mass is exact in float64; the plotted counter is float32, as in
     # the JAX package, so past 2^24 it carries its own rounding.  The
-    # pass keeps its first two flushes' records for the flush-mix phase.
+    # pass runs through the C loop, as production does, and again on
+    # its seed through the Python loop: plotted bit-equal (the C loop's
+    # per-chunk counts folded by plotted_fold against the Python loop's
+    # f32 sum), density equal.  The Python pass keeps its first two
+    # flushes' records for the flush-mix phase.
+    hist, st2 = r.accumulate(0.0, seed=2)
     flushes, real = [], tit.PACKED_FLUSHES[r.backend]
 
     def keep_first(hist, recs, *args):
@@ -775,13 +787,23 @@ def phase_render(torch, flush, tiled_sort, tit, write_image, r, quality):
             flushes.append(recs.reshape(-1).clone())
         return real(hist, recs, *args)
     tit.PACKED_FLUSHES[r.backend] = keep_first
-    hist, st2 = r.accumulate(0.0, seed=2)
-    tit.PACKED_FLUSHES[r.backend] = real
+    try:
+        with python_loop(tit):
+            py_hist, py_st = r.accumulate(0.0, seed=2)
+    finally:
+        tit.PACKED_FLUSHES[r.backend] = real
+    check(len(flushes) == 2, f"{len(flushes)} flushes kept, expected 2")
     check(bool(torch.isfinite(hist).all()), "non-finite histogram")
     mass = float(hist[:-1, 3].double().sum())
     check(abs(mass - st2.plotted_samples) <= 1e-4 * mass,
           f"histogram mass {mass} != plotted samples "
           f"{st2.plotted_samples}")
+    check(st2.plotted_samples == py_st.plotted_samples,
+          f"plotted {st2.plotted_samples} through the C loop, "
+          f"{py_st.plotted_samples} through the Python loop")
+    check(bool(torch.equal(hist[:, 3], py_hist[:, 3])),
+          "the C loop's density differs from the Python loop's")
+    del py_hist
     prof, cam = r.profile, r.cam
     phase(4, "render", genome="full_feature", profile="1080p",
           quality=quality, acc=[cam.acc_width, cam.acc_height],
@@ -790,7 +812,9 @@ def phase_render(torch, flush, tiled_sort, tit, write_image, r, quality):
           records_per_flush=prof.batch * prof.iters_per_chunk,
           backend=r.backend, launches=launches,
           plotted_samples=stats.plotted_samples,
-          total_iters=stats.total_iters,
+          c_loop_plotted_samples=st2.plotted_samples,
+          python_loop_plotted_samples=py_st.plotted_samples,
+          chunks=st2.chunks, total_iters=stats.total_iters,
           samples_per_s=stats.samples_per_sec,
           iterate_s=stats.iterate_s, filter_s=stats.filter_s,
           lit_fraction=float((img[..., :3] > 0).any(-1).mean()),
@@ -839,11 +863,19 @@ def phase_flush_mix(torch, flush, sort, thist, flushes, n_bins, acc_width,
     fns, atomics = {}, {}
     errs = dict.fromkeys([*LOGICAL_FLUSHES, "win_flush_rgb16"], 0.0)
     start = split_start(torch, n_bins, gen)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
     for name, r in (("first", flushes[0]), ("real", rec),
                     ("synthetic", synth)):
         live = r[(r >> bits) < n_bins]
         fns[f"{name}_ms"] = (lambda r=r: flush.accumulate_packed(
             hist, r, pal, n_bins, bits))
+        # the flush the C chunk loop launches: the same, counting
+        count.zero_()
+        flush.accumulate_packed(hist, r, pal, n_bins, bits, count=count)
+        check(int(count) == int(((r >> bits) != n_bins).sum()),
+              f"the {name} flush counted {int(count)} plotted records")
+        fns[f"{name}_tally_ms"] = (lambda r=r: flush.accumulate_packed(
+            hist, r, pal, n_bins, bits, count=count))
         fns[f"{name}_no_junk_ms"] = (lambda r=live: flush.accumulate_packed(
             hist, r, pal, n_bins, bits))
         atomics[name] = packed_atomics(torch, flush, r, pal4, n_bins, bits)
@@ -910,9 +942,24 @@ def phase_flush_mix(torch, flush, sort, thist, flushes, n_bins, acc_width,
           **{f"{k}_max_abs_err": v for k, v in errs.items()}, **med)
 
 
+@contextlib.contextmanager
+def python_loop(it):
+    """Renders through the Python chunk loop of ops/iterate.py (`it`),
+    which calls the PACKED_FLUSHES entry once a chunk, where the card
+    would queue the chunks from C: for a wrapped flush to see each
+    chunk's records."""
+    c_loop = it.takes_c_loop
+    it.takes_c_loop = lambda backend, device: False
+    try:
+        yield
+    finally:
+        it.takes_c_loop = c_loop
+
+
 def second_flush(tit, r, t=0.0, seed=5):
     """(records, palette rows, bits) of the second flush of a frame of
-    Renderer `r`: the first past the fuse steps."""
+    Renderer `r`: the first past the fuse steps, seen in the Python
+    chunk loop (the C loop's records are the same)."""
     real, kept = tit.PACKED_FLUSHES[r.backend], []
 
     def keep(hist, recs, palette_hi, n_bins, bits, weight=None):
@@ -921,7 +968,8 @@ def second_flush(tit, r, t=0.0, seed=5):
         return real(hist, recs, palette_hi, n_bins, bits, weight)
     tit.PACKED_FLUSHES[r.backend] = keep
     try:
-        r.accumulate(t, seed=seed)
+        with python_loop(tit):
+            r.accumulate(t, seed=seed)
     finally:
         tit.PACKED_FLUSHES[r.backend] = real
     check(len(kept) == 2, f"{len(kept)} flushes kept, expected 2")
@@ -998,25 +1046,25 @@ def phase_render_backend(torch, flush, tiled_sort, tit, Renderer, genome,
     accumulate + finalize_frame, the two halves of render_frame, so one
     pass gives the launches, the mass and the frame.  Returns the
     launches of its flush kernel and of the sort."""
+    from cuburn_tpu_torch.utils import trace
     name = FLUSH_KERNEL[backend]
     r = Renderer(genome, get_profile("1080p", quality=quality,
                                      hist_backend=backend))
     check(r.backend == backend, f"backend {r.backend}, expected {backend}")
-    wrapper, flushes = tit.PACKED_FLUSHES[backend], 0
-
-    def counted(*args):
-        nonlocal flushes
-        flushes += 1
-        return wrapper(*args)
-    tit.PACKED_FLUSHES[backend] = counted
     reset_launches(flush, tiled_sort)
+    before = trace.counters()
     hist, stats = r.accumulate(0.0, seed=1)
     img = r.finalize_frame(hist, 0.0, stats)
+    counted = trace.since(before)
+    flushes = counted["chunks"]         # one flush a chunk
     launches = flush.LAUNCHES[name]
     sorts = tiled_sort.LAUNCHES["bitonic_sort"]
     chaos_launches = launches_now(flush, tiled_sort)["chaos_iterate"]
     probe = probe_launches(flush, tiled_sort)
-    tit.PACKED_FLUSHES[backend] = wrapper
+    looped = flushes if backend in tit.C_LOOP_BACKENDS else 0
+    check(counted["looped_chunks"] == looped,
+          f"the {backend} render queued {counted['looped_chunks']} of "
+          f"{flushes} chunks from C, expected {looped}")
     check(probe == dict.fromkeys(PROBE_KERNELS, 0),
           f"the {backend} render launched {probe}")
     check(launches == flushes * LAUNCHES_PER_FLUSH[name] > 0,
@@ -2299,11 +2347,13 @@ FULL_FEATURE_STEP_OPS = {
 def eager_loop(it):
     """The Renderer's chunks through the kernel's plain version (the
     eager iterate_step loop of ops/iterate.py, `it`) instead of the
-    kernel."""
+    kernel, in the Python chunk loop (the C loop launches the kernel
+    itself)."""
     kernel = it.iterate_records
     it.iterate_records = it.iterate_records_reference
     try:
-        yield
+        with python_loop(it):
+            yield
     finally:
         it.iterate_records = kernel
 

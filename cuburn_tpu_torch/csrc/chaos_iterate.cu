@@ -44,6 +44,14 @@
 // rounding, renders by distribution.  On the card the kernel is
 // bit-exact to the eager loop, which calls the same libdevice functions.
 //
+// chaos_accumulate queues a whole accumulation from one host call: per
+// chunk a chaos_iterate launch and a launch of the flush it is handed
+// (scatter_flush.cu's packed_flush_tally, through a function pointer),
+// the state ping-ponging between two buffers, then one single-thread
+// kernel that folds the chunks' plotted counts into the float32 total.
+// It replaces the per-chunk Python of ops/iterate.py (about ten torch
+// operations a chunk) where the flush is the unsorted packed one.
+//
 // Without CHAOS_KEY the source builds the generic library: every
 // variation behind a switch for chaos_variation (one variation at n
 // points, for the tests) and no chaos_iterate entry at all, so nothing
@@ -1147,6 +1155,27 @@ struct ChaosArgs {
   int tile_row0, junk_bin, fuse, cbits, tot_bits, op_bits, unpacked;
 };
 
+// A chunk's trajectories in ChaosArgs's order: the state one chunk
+// writes and the next reads (chaos_accumulate's second buffer).
+struct StateBuf {
+  float* x;
+  float* y;
+  float* color;
+  int64_t* last_xf;
+  int64_t* age;
+  int64_t* rng;
+};
+
+// The flush chaos_accumulate launches after each chunk: scatter_flush.cu's
+// packed_flush_tally, reached through a pointer to its C entry, so the
+// flush has one build.  It adds weight * pal4[q] of every record into
+// hist and the chunk's plotted count into *count, and returns
+// cudaGetLastError().
+typedef int (*TallyFlush)(const int64_t* recs, int64_t n, const float* pal4,
+                          int cbits, int64_t n_bins, float weight,
+                          float* hist, int64_t* count,
+                          chaos_stream_t stream);
+
 // One variation alone at n points, for the tests: tx, ty, w per point,
 // the variation's knobs and the affine shared; the RNG words advance in
 // place.
@@ -1370,6 +1399,16 @@ CB_HD void chaos_lane(const ChaosArgs& a, int lane) {
   wo[3] = rng.w;
 }
 
+// The plotted total as the port's Python loop keeps it: a float32
+// running sum of the chunks' exact int64 counts, each rounded to float32
+// and added in chunk order (the JAX package's f32 counter).
+CB_HD float fold_plotted(const int64_t* counts, int n_chunks) {
+  float total = 0.0f;
+  for (int k = 0; k < n_chunks; ++k)
+    total = total + static_cast<float>(counts[k]);
+  return total;
+}
+
 #else  // the generic library: one variation at n points
 
 CB_HD void apply_variation(int id, const Ctx& c, float w, const float* p,
@@ -1430,6 +1469,12 @@ __global__ void __launch_bounds__(kThreads)
     if (lane < a.batch) chaos_lane(a, lane);
   }
 }
+
+// chaos_accumulate's last launch: the chunks' counts folded by one thread
+__global__ void plotted_fold_kernel(const int64_t* counts, int n_chunks,
+                                    float* plotted) {
+  *plotted = fold_plotted(counts, n_chunks);
+}
 #else
 __global__ void __launch_bounds__(kThreads)
     chaos_variation_kernel(const __grid_constant__ VariationArgs a) {
@@ -1441,10 +1486,10 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// C entries: each runs one kernel launch on `stream` (no sync) and
-// returns cudaGetLastError(); the host build runs the same lanes in a
-// loop and returns 0.  A key's library has chaos_iterate, the generic
-// one chaos_variation.
+// C entries: each but chaos_accumulate runs one kernel launch on `stream`
+// (no sync) and returns cudaGetLastError(); the host build runs the same
+// lanes in a loop and returns 0.  A key's library has chaos_iterate and
+// chaos_accumulate, the generic one chaos_variation.
 
 extern "C" int chaos_variation_count() { return kNumVariations; }
 
@@ -1465,6 +1510,60 @@ extern "C" int chaos_iterate(const ChaosArgs* a, chaos_stream_t stream) {
     const unsigned blocks = (a->batch + kThreads - 1) / kThreads;
     chaos_iterate_kernel<<<blocks, kThreads, 0, stream>>>(*a);
   }
+  return static_cast<int>(cudaGetLastError());
+#endif
+}
+
+// a reads its trajectories from `in` and writes them into `out`
+static void route_state(ChaosArgs& a, const StateBuf& in,
+                        const StateBuf& out) {
+  a.x = in.x;
+  a.y = in.y;
+  a.color = in.color;
+  a.last_xf = in.last_xf;
+  a.age = in.age;
+  a.rng = in.rng;
+  a.x_out = out.x;
+  a.y_out = out.y;
+  a.color_out = out.color;
+  a.last_xf_out = out.last_xf;
+  a.age_out = out.age;
+  a.rng_out = out.rng;
+}
+
+// n_chunks chunks of the chaos game, each flushed, from one host call:
+// per chunk one chaos_iterate launch of `first`'s plan, then `flush` over
+// its records into hist with the chunk's count into counts[k] (zeroed by
+// the caller); then one plotted_fold launch writes fold_plotted(counts)
+// to *plotted.  The trajectories go from `first`'s input state into its
+// output buffer, then back and forth between that buffer and `spare`:
+// the final state is in the output buffer for an odd n_chunks, in
+// `spare` for an even one, and the input state is never written.  No
+// sync.  Returns the first non-zero error; the host build runs the same
+// loop over its lane loops and folds on the host.
+extern "C" int chaos_accumulate(const ChaosArgs* first, const StateBuf* spare,
+                                int n_chunks, TallyFlush flush,
+                                const float* pal4, int64_t n_bins,
+                                float weight, float* hist, int64_t* counts,
+                                float* plotted, chaos_stream_t stream) {
+  ChaosArgs a = *first;
+  const StateBuf bufs[2] = {{a.x_out, a.y_out, a.color_out, a.last_xf_out,
+                             a.age_out, a.rng_out},
+                            *spare};
+  const int64_t n = static_cast<int64_t>(a.batch) * a.n_iters;
+  for (int k = 0; k < n_chunks; ++k) {
+    if (k > 0) route_state(a, bufs[(k - 1) & 1], bufs[k & 1]);
+    int err = chaos_iterate(&a, stream);
+    if (err == 0)
+      err = flush(a.rec, n, pal4, a.tot_bits, n_bins, weight, hist,
+                  counts + k, stream);
+    if (err != 0) return err;
+  }
+#ifdef CHAOS_HOST
+  *plotted = fold_plotted(counts, n_chunks);
+  return 0;
+#else
+  plotted_fold_kernel<<<1, 1, 0, stream>>>(counts, n_chunks, plotted);
   return static_cast<int>(cudaGetLastError());
 #endif
 }

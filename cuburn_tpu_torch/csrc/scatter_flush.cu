@@ -64,6 +64,14 @@
 //     different colours and of different tiles share bins).
 //   - The sort's padding (0xFFFFFFFF) is one run that no one writes.
 //
+// packed_flush_tally, the variant the chaos loop launches
+// (chaos_iterate.cu's chaos_accumulate), also adds the flush's plotted
+// count, its records whose address is not the junk bin n_bins, into an
+// int64 slot: block 0 adds all n records and every block with junk
+// subtracts its records at the junk bin, counted inside the junk
+// reduction it already makes.  A block without junk adds nothing, so the
+// count costs no pass over the records and no atomic of its own.
+//
 // Density stays exact at weight 1.0 with a 3-column palette: its adds
 // are integer counts, exact in any order up to 2^24 a bin.  The packed
 // flush's rgb sums are reassociated inside a group.
@@ -123,14 +131,17 @@ __device__ __forceinline__ float4 warp_sum(float4 v) {
 }
 
 // kCount: also add the number of atomics made on `hist` to *n_atomics
-// (one more atomic a warp; the debug entry).
-template <bool kCount>
+// (one more atomic a warp; the debug entry).  kTally: also add the
+// number of records whose address is not n_bins to *plotted.
+template <bool kCount, bool kTally>
 __global__ void __launch_bounds__(kThreads)
 packed_flush_kernel(const long long* __restrict__ recs, long long n,
                     const float4* __restrict__ pal4, int cbits,
                     uint32_t n_bins, float weight, float4* __restrict__ hist,
-                    unsigned long long* __restrict__ n_atomics) {
+                    unsigned long long* __restrict__ n_atomics,
+                    unsigned long long* __restrict__ plotted) {
   __shared__ float4 s_junk[kWarps];
+  __shared__ int s_junk_n[kWarps];
   __shared__ unsigned char s_slot[kWarps][kSlots];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -152,6 +163,9 @@ packed_flush_kernel(const long long* __restrict__ recs, long long n,
   float4 junk = zero4();
   bool has_junk = false;
   int made = 0;
+  int at_junk = 0;    // records at the junk bin itself (kTally)
+  if (kTally && blockIdx.x == 0 && tid == 0)
+    atomicAdd(plotted, static_cast<unsigned long long>(n));
 #pragma unroll
   for (int k = 0; k < kPackedPer; ++k) {
     const bool held = p + k < n;
@@ -161,6 +175,7 @@ packed_flush_kernel(const long long* __restrict__ recs, long long n,
     if (held && !live) {
       junk = add(junk, row);
       has_junk = true;
+      if (kTally) at_junk += addr == n_bins;
     }
     // the cheap vote: every live lane writes its number into the slot
     // its address hashes to and reads it back.  Lanes with equal
@@ -208,6 +223,10 @@ packed_flush_kernel(const long long* __restrict__ recs, long long n,
   if (__syncthreads_or(has_junk)) {
     const float4 s = warp_sum(junk);
     if (lane == 0) s_junk[warp] = s;
+    if (kTally) {
+      const int c = __reduce_add_sync(kFull, at_junk);
+      if (lane == 0) s_junk_n[warp] = c;
+    }
     __syncthreads();
     if (tid == 0) {
       float4 total = s_junk[0];
@@ -215,6 +234,14 @@ packed_flush_kernel(const long long* __restrict__ recs, long long n,
       for (int w = 1; w < kWarps; ++w) total = add(total, s_junk[w]);
       atomicAdd(hist + n_bins, scale(total, weight));
       ++made;
+      if (kTally) {
+        unsigned long long c = 0;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) c += s_junk_n[w];
+        // subtracted modulo 2^64: block 0's n keeps the slot's sum
+        // non-negative once every block has added
+        if (c) atomicAdd(plotted, 0ull - c);
+      }
     }
   }
   if (kCount) {
@@ -323,18 +350,19 @@ merged_flush_kernel(const long long* __restrict__ recs, long long n,
   }
 }
 
-template <bool kCount>
+template <bool kCount, bool kTally>
 int launch_packed(const int64_t* recs, int64_t n, const float* pal4,
                   int cbits, int64_t n_bins, float weight, float* hist,
-                  unsigned long long* n_atomics, cudaStream_t stream) {
+                  unsigned long long* n_atomics,
+                  unsigned long long* plotted, cudaStream_t stream) {
   if (n > 0) {
     const unsigned blocks =
         static_cast<unsigned>((n + kPackedTile - 1) / kPackedTile);
-    packed_flush_kernel<kCount><<<blocks, kThreads, 0, stream>>>(
+    packed_flush_kernel<kCount, kTally><<<blocks, kThreads, 0, stream>>>(
         reinterpret_cast<const long long*>(recs), n,
         reinterpret_cast<const float4*>(pal4), cbits,
         static_cast<uint32_t>(n_bins), weight,
-        reinterpret_cast<float4*>(hist), n_atomics);
+        reinterpret_cast<float4*>(hist), n_atomics, plotted);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -350,8 +378,21 @@ extern "C" int packed_flush(const int64_t* recs, int64_t n,
                             const float* pal4, int cbits, int64_t n_bins,
                             float weight, float* hist,
                             cudaStream_t stream) {
-  return launch_packed<false>(recs, n, pal4, cbits, n_bins, weight, hist,
-                              nullptr, stream);
+  return launch_packed<false, false>(recs, n, pal4, cbits, n_bins, weight,
+                                     hist, nullptr, nullptr, stream);
+}
+
+// packed_flush that also adds its plotted count, the records whose
+// address is not n_bins, to the int64 at `plotted`: the flush that
+// chaos_iterate.cu's chaos_accumulate launches once a chunk, through a
+// pointer to this entry.
+extern "C" int packed_flush_tally(const int64_t* recs, int64_t n,
+                                  const float* pal4, int cbits,
+                                  int64_t n_bins, float weight, float* hist,
+                                  int64_t* plotted, cudaStream_t stream) {
+  return launch_packed<false, true>(
+      recs, n, pal4, cbits, n_bins, weight, hist, nullptr,
+      reinterpret_cast<unsigned long long*>(plotted), stream);
 }
 
 // packed_flush that also adds the atomics it makes on hist to the
@@ -362,8 +403,8 @@ extern "C" int packed_flush_counted(const int64_t* recs, int64_t n,
                                     float* hist,
                                     unsigned long long* n_atomics,
                                     cudaStream_t stream) {
-  return launch_packed<true>(recs, n, pal4, cbits, n_bins, weight, hist,
-                             n_atomics, stream);
+  return launch_packed<true, false>(recs, n, pal4, cbits, n_bins, weight,
+                                    hist, n_atomics, nullptr, stream);
 }
 
 extern "C" int merged_flush(const int64_t* recs, int64_t n,

@@ -124,7 +124,7 @@ def load(name: str, defines=()) -> ctypes.CDLL:
     return lib
 
 
-def _entry(lib, entry: str, argtypes):
+def typed_entry(lib, entry: str, argtypes):
     """C entry `entry` of the loaded library `lib`, typed once: its
     argtypes are `argtypes` plus the trailing stream, it returns int."""
     fn = _ENTRIES.get((lib, entry))
@@ -145,8 +145,8 @@ def launch(counts: dict, kernel: str, lib: str, entry: str, argtypes,
     counts[kernel].  `argtypes` leaves out the trailing stream argument;
     pointers are passed as ints.  Raises RuntimeError on a launch error,
     uncounted."""
-    fn = _entry(load(lib, defines) if defines else load(lib), entry,
-                argtypes)
+    fn = typed_entry(load(lib, defines) if defines else load(lib), entry,
+                     argtypes)
     err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")

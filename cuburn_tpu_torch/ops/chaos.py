@@ -27,7 +27,14 @@ A launch reads one `ChaosArgs` struct, passed by value: the state and
 output tensors and the genome evaluation's tensors as pointers, and the
 camera and record layout as ints.  Nothing in it is read back from the
 device, so a chunk costs no sync.  `plan` gathers a genome evaluation's
-tensors once per sample.  `LAUNCHES` counts kernel launches in this
+tensors once per sample.
+
+`launch_accumulate` queues a whole accumulation from one C call
+(`chaos_accumulate`): every chunk's chaos_iterate launch and, through a
+pointer to its C entry, scatter_flush.cu's counting `packed_flush`, the
+state ping-ponging between two buffers, then one single-thread
+`plotted_fold` launch for the float32 plotted total.  No torch
+operation runs per chunk.  `LAUNCHES` counts kernel launches in this
 process; callers reset it to count a run.
 """
 
@@ -43,11 +50,12 @@ import torch
 from cuburn_tpu_torch.genome.specs import StructureKey
 from cuburn_tpu_torch.genome.variations import VARIATION_PARAMS
 from cuburn_tpu_torch.kernels import build as _build
+from cuburn_tpu_torch.ops import flush as flush_mod
 from cuburn_tpu_torch.ops.camera import CameraSpec
 from cuburn_tpu_torch.ops.xform import build_xform_table
 
 LIBRARY = "chaos_iterate"
-LAUNCHES = {"chaos_iterate": 0}
+LAUNCHES = {"chaos_iterate": 0, "plotted_fold": 0}
 
 # the registry's size
 MAX_VARS = 100
@@ -71,6 +79,12 @@ class ChaosArgs(ctypes.Structure):
             "batch", "n_iters", "no_rotation", "ss", "acc_width",
             "acc_height", "full_acc_height", "tile_row0", "junk_bin", "fuse",
             "cbits", "tot_bits", "op_bits", "unpacked")]
+
+
+class StateBuf(ctypes.Structure):
+    """csrc/chaos_iterate.cu's StateBuf: an IterState's tensors as
+    pointers, in STATE_FIELDS order."""
+    _fields_ = [(name, _P) for name in STATE_FIELDS]
 
 
 class VariationArgs(ctypes.Structure):
@@ -317,6 +331,58 @@ def _launch(p: ChaosPlan, state, new, rec, pcolor=None,
     _build.launch(LAUNCHES, "chaos_iterate", LIBRARY, "chaos_iterate",
                   (_P,), stream, ctypes.addressof(args),
                   defines=key_defines(p.key))
+
+
+def accumulate_call(lib: ctypes.CDLL, p: ChaosPlan, state, recs,
+                    n_chunks: int, flush_fn: int, pal4, n_bins: int,
+                    weight: float, hist, stream):
+    """One call of `lib`'s chaos_accumulate: n_chunks chunks of p's chaos
+    game from `state` (never written), each writing recs ((n_iters, B)
+    int64) and flushed by the C function at `flush_fn` (csrc/
+    chaos_iterate.cu TallyFlush) into hist with the palette rows pal4,
+    then the plotted counts folded.  Returns (new state, plotted (a
+    float32 scalar), the chunks' int64 counts).  Raises on a non-zero
+    return, before anything is counted."""
+    bufs = (empty_state(state), empty_state(state))
+    dev = state.x.device
+    counts = torch.zeros((n_chunks,), dtype=torch.int64, device=dev)
+    plotted = torch.empty((), dtype=torch.float32, device=dev)
+    args = chaos_args(lib, p, state, bufs[0], recs)
+    spare = StateBuf(*(getattr(bufs[1], f).data_ptr()
+                       for f in STATE_FIELDS))
+    fn = _build.typed_entry(lib, "chaos_accumulate", (
+        _P, _P, _I, _P, _P, ctypes.c_int64, ctypes.c_float, _P, _P, _P))
+    err = fn(ctypes.addressof(args), ctypes.addressof(spare), n_chunks,
+             flush_fn, pal4.data_ptr(), n_bins, weight, hist.data_ptr(),
+             counts.data_ptr(), plotted.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"chaos_accumulate failed: CUDA error {err}")
+    # chunk k writes bufs[k % 2]; no chunk leaves the state as it was
+    new = bufs[(n_chunks - 1) % 2] if n_chunks else state
+    return new, plotted, counts
+
+
+def launch_accumulate(p: ChaosPlan, state, recs, hist, palette_hi,
+                      n_chunks: int, weight=None):
+    """accumulate_call on the card with p.key's library on the current
+    stream: n_chunks chunks of p's chaos game from `state` (never
+    written) into recs, each flushed by scatter_flush.cu's counting
+    packed flush into hist with the palette palette_hi at `weight`
+    (default 1).  Counts the launches the call makes: n_chunks
+    chaos_iterate, n_chunks packed_flush (ops/flush.py's LAUNCHES; none
+    where a chunk holds no record) and one plotted_fold.  Returns (new
+    state, plotted, a float32 scalar)."""
+    flush_fn, pal4 = flush_mod.looped_flush(hist, recs, palette_hi,
+                                            p.cam.n_bins, p.tot_bits)
+    stream = torch.cuda.current_stream(recs.device).cuda_stream
+    new, plotted, _counts = accumulate_call(
+        load(p.key), p, state, recs, n_chunks, flush_fn, pal4,
+        p.cam.n_bins, flush_mod._weight(weight), hist, stream)
+    LAUNCHES["chaos_iterate"] += n_chunks
+    if recs.numel():
+        flush_mod.LAUNCHES["packed_flush"] += n_chunks
+    LAUNCHES["plotted_fold"] += 1
+    return new, plotted
 
 
 def variation_args(lib: ctypes.CDLL, name: str, tx, ty, w, params, aff,

@@ -65,6 +65,9 @@ _ENTRIES = {
     "packed_flush_counted": ("scatter_flush", "packed_flush",
                              (_P, _I64, _P, ctypes.c_int, _I64, _F, _P,
                               _P)),
+    # packed_flush that also adds its plotted count into an int64
+    "packed_flush_tally": ("scatter_flush", "packed_flush",
+                           (_P, _I64, _P, ctypes.c_int, _I64, _F, _P, _P)),
     "merged_flush": ("scatter_flush", "merged_flush",
                      (_P, _I64, _P, ctypes.c_int, _I64, _F, _P)),
     "win_flush_rgb16_tiles": ("win_flush_rgb16", "win_flush_rgb16",
@@ -218,38 +221,81 @@ def accumulate_windowed(hist, packed_records, palette_hi, n_bins: int,
 
 # -- pallas: unsorted records, atomics aggregated per warp and block -------
 
+def _check_count(count, hist):
+    if count.dtype != torch.int64 or count.numel() != 1 \
+            or count.device != hist.device:
+        raise ValueError(
+            f"count must be one int64 on {hist.device}, got {count.dtype} "
+            f"{tuple(count.shape)} on {count.device}")
+
+
 def accumulate_packed_reference(hist, packed_records, palette_hi,
                                 n_bins: int, color_bits: int,
-                                weight=None):
+                                weight=None, count=None):
     """The plain flush of unsorted records: unpack, then index_add_ of
-    weight * pal4[q] per record.  Updates hist in place; returns it."""
+    weight * pal4[q] per record.  With `count` (one int64, updated in
+    place) it also adds the plotted count: the records whose address is
+    not the junk bin n_bins.  Updates hist in place; returns it."""
     _check(hist, packed_records, palette_hi, n_bins, color_bits)
-    return _add_rows(hist, packed_records.reshape(-1), palette_hi, n_bins,
-                     color_bits, None, _weight(weight))
+    recs = packed_records.reshape(-1)
+    if count is not None:
+        _check_count(count, hist)
+        count += ((recs >> color_bits) != n_bins).sum()
+    return _add_rows(hist, recs, palette_hi, n_bins, color_bits, None,
+                     _weight(weight))
 
 
 def accumulate_packed(hist, packed_records, palette_hi, n_bins: int,
-                      color_bits: int, weight=None):
+                      color_bits: int, weight=None, count=None):
     """Flush unsorted packed records into the logical histogram IN
     PLACE: each record adds weight * pal4[q] into bin addr, in no
     particular order (`accumulate_packed_pallas`, backends `pallas` and
-    `atomic`).
+    `atomic`).  With `count`, the plotted count as
+    accumulate_packed_reference's.
     CUDA tensors launch scatter_flush.cu's packed entry once: a block
     sums its junk-bin rows into one float4 atomicAdd, a warp the rows
-    of lanes with equal addresses, every other record adds its own.
+    of lanes with equal addresses, every other record adds its own;
+    the counting entry counts the records at the junk bin inside the
+    same block sum.
     Density is exact at weight 1.0 with a 3-column palette, since its
     sums are integer counts; rgb agrees within float32 reassociation."""
     _check(hist, packed_records, palette_hi, n_bins, color_bits)
     if _device_of(hist) == "cpu":
         return accumulate_packed_reference(
-            hist, packed_records, palette_hi, n_bins, color_bits, weight)
+            hist, packed_records, palette_hi, n_bins, color_bits, weight,
+            count)
     pal4 = _aligned_pal4(palette_hi)
     recs = _aligned(packed_records.reshape(-1))
-    if recs.numel():        # the sorted flushes always get >= 1 record
-        _launch("packed_flush", hist.device, recs.data_ptr(),
-                recs.numel(), pal4.data_ptr(), color_bits, n_bins,
-                _weight(weight), hist.data_ptr())
+    if count is not None:
+        _check_count(count, hist)
+    if not recs.numel():    # the sorted flushes always get >= 1 record
+        return hist
+    args = (recs.data_ptr(), recs.numel(), pal4.data_ptr(), color_bits,
+            n_bins, _weight(weight), hist.data_ptr())
+    if count is None:
+        _launch("packed_flush", hist.device, *args)
+    else:
+        _launch("packed_flush_tally", hist.device, *args, count.data_ptr())
     return hist
+
+
+def looped_flush(hist, packed_records, palette_hi, n_bins: int,
+                 color_bits: int):
+    """What a C loop that launches the counting packed flush itself
+    needs (ops/chaos.py launch_accumulate): the inputs checked as
+    accumulate_packed checks them, then (the address of
+    scatter_flush.cu's packed_flush_tally entry, the palette rows as
+    the kernel reads them).  The records must already lie on a 16-byte
+    boundary, since the loop writes them in place.  CUDA tensors
+    only."""
+    _check(hist, packed_records, palette_hi, n_bins, color_bits)
+    if _device_of(hist) != "cuda" or packed_records.data_ptr() % 16 \
+            or not packed_records.is_contiguous():
+        raise ValueError("the looped flush takes contiguous CUDA records "
+                         "on a 16-byte boundary")
+    lib = _build.load(_ENTRIES["packed_flush_tally"][0])
+    fn = ctypes.cast(lib.packed_flush_tally, ctypes.c_void_p).value
+    return fn, _aligned_pal4(palette_hi)
 
 
 # -- pallas_merged: sort, run-merge, one add per unique record -------------

@@ -16,10 +16,11 @@ flushes them into the histogram once per chunk.  On a CUDA tensor a
 chunk is one launch of the chaos-game kernel (`iterate_records`,
 `iterate_full`: ops/chaos.py, csrc/chaos_iterate.cu); on a CPU tensor
 it is the kernel's plain version, `iterate_step` below once a step, a
-few hundred small eager ops each.  Records are int64 tensors holding
-u32 values.  A frame whose records do not fit 32 bits (past 2^24 bins,
-or `packed=False`) flushes full (addr, rgba) records from
-`iterate_chunk` instead.
+few hundred small eager ops each.  On the card with the unsorted packed
+flush the chunk loop itself runs in C (`chaos.launch_accumulate`).
+Records are int64 tensors holding u32 values.  A frame whose records
+do not fit 32 bits (past 2^24 bins, or `packed=False`) flushes full
+(addr, rgba) records from `iterate_chunk` instead.
 """
 
 from __future__ import annotations
@@ -245,6 +246,9 @@ PACKED_FLUSHES = {
     "pallas_rgb16": flush_mod.accumulate_windowed_rgb16,
     "atomic": flush_mod.accumulate_packed,
 }
+# the backends whose flush (accumulate_packed) the C chunk loop launches
+# itself on the card (takes_c_loop)
+C_LOOP_BACKENDS = ("pallas", "atomic")
 # the backends whose records carry at most 8 colour bits
 EIGHT_BIT = ("pallas_win", "pallas_rgb16", "atomic")
 
@@ -367,7 +371,13 @@ def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
     ops/histogram.py backend; a packed-record flush raises ValueError
     there, as in the JAX package.  Returns (new_state, hist, plotted)
     with plotted a float32 device scalar, as the JAX counterpart's f32
-    counter.  Each chunk is a `chunk` span, its plotted count a `count`
+    counter.
+
+    On the card, for the backends whose flush is the unsorted packed one
+    (C_LOOP_BACKENDS), one C call queues every chunk
+    (`chaos.launch_accumulate`, a `loop` span; COUNTS["looped_chunks"]).
+    Every other backend, the unpacked path and the CPU run the Python
+    loop below: each chunk a `chunk` span, its plotted count a `count`
     span."""
     cbits, tot_bits = (record_bits(key, cam, backend, op_bits) if packed
                        else (0, 0))
@@ -398,6 +408,13 @@ def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
     batch = state.x.shape[0]
     recs = torch.empty((iters_per_flush, batch), dtype=torch.int64,
                        device=state.x.device)
+    if n_chunks and takes_c_loop(backend, recs.device):
+        with trace.span("loop"):
+            state, plotted = chaos.launch_accumulate(
+                plan, state, recs, hist, palette_hi, n_chunks, weight)
+        trace.COUNTS["looped_chunks"] += n_chunks
+        _count_chunks(n_chunks, recs.numel())
+        return state, hist, plotted
     plotted = torch.zeros((), dtype=torch.float32, device=state.x.device)
     for _ in range(n_chunks):
         with trace.span("chunk"):
@@ -411,6 +428,15 @@ def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
                     .to(torch.float32)
     _count_chunks(n_chunks, recs.numel())
     return state, hist, plotted
+
+
+def takes_c_loop(backend: str, device) -> bool:
+    """Whether iterate_accumulate queues its chunks from one C call
+    rather than its Python loop: on the card, for C_LOOP_BACKENDS.  A
+    caller that needs the Python loop, to see each chunk's records
+    through a wrapped PACKED_FLUSHES entry, patches this to False."""
+    return backend in C_LOOP_BACKENDS and \
+        torch.device(device).type == "cuda"
 
 
 def _count_chunks(n_chunks: int, records_a_chunk: int) -> None:

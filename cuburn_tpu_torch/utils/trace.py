@@ -30,8 +30,9 @@ PREFIX = "cuburn."
 _NULL = contextlib.nullcontext()
 _profiler_enabled = torch.autograd._profiler_enabled
 
-# chunks run, records flushed, host waits for the stream
-COUNTS = {"chunks": 0, "records": 0, "syncs": 0}
+# chunks run, records flushed, host waits for the stream, and the chunks
+# of those queued by one C call (ops/chaos.py launch_accumulate)
+COUNTS = {"chunks": 0, "records": 0, "syncs": 0, "looped_chunks": 0}
 
 
 def span(name: str):

@@ -21,7 +21,11 @@ Contracts:
 - `atomic`, the port's own backend (no JAX counterpart: a TPU has no
   scatter-add), packs `pallas_win`'s records in every geometry and
   flushes them unsorted into the same histogram: density exact at
-  weight 1, rgb within float32 reassociation.
+  weight 1, rgb within float32 reassociation;
+- the chunk loop runs in C only on the card and only where the flush is
+  accumulate_packed (`atomic`, `pallas`): every other backend, a spy
+  wrapped around a flush, and every backend on the CPU take the Python
+  loop, one `chunk` a chunk, and never reach the C loop.
 """
 
 import ctypes
@@ -55,6 +59,7 @@ from cuburn_tpu_torch.ops import iterate as tit  # noqa: E402
 from cuburn_tpu_torch.ops import sort as tsort  # noqa: E402
 from cuburn_tpu_torch.ops import tiled_sort  # noqa: E402
 from cuburn_tpu_torch.profile import RenderProfile as TProfile  # noqa: E402
+from cuburn_tpu_torch.utils import trace  # noqa: E402
 
 N_BINS = 64 * 64
 NEW_BACKENDS = ("pallas", "pallas_merged", "pallas_rgb16", "scatter_sorted",
@@ -752,3 +757,68 @@ def test_cli_passes_backend_through(backend, tmp_path, capsys):
                      "--hist-backend", backend, "--stats"])
     assert rc == 0 and out.stat().st_size > 0
     assert f"[{backend} on cpu]" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("backend", [*sorted(tit.PACKED_FLUSHES),
+                                     *thist.BACKENDS])
+def test_c_loop_only_for_the_unsorted_packed_flush_on_the_card(backend):
+    """The loop follows the backend's name and the device alone."""
+    c_loop = backend in ("atomic", "pallas")
+    assert tit.takes_c_loop(backend, torch.device("cuda")) == c_loop
+    assert tit.takes_c_loop(backend, "cuda:0") == c_loop
+    assert not tit.takes_c_loop(backend, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("backend", ["atomic", "pallas"])
+def test_a_wrapped_flush_keeps_the_c_loop(backend, monkeypatch):
+    """A wrapper around a PACKED_FLUSHES entry does not reroute the
+    card's chunks to the Python loop: the C loop is taken, and the
+    wrapper is never called."""
+    calls = []
+
+    def looped(plan, state, recs, hist, palette_hi, n_chunks, weight):
+        calls.append(n_chunks)
+        return state, torch.zeros((), dtype=torch.float32)
+
+    def spy(*args, **kwargs):
+        raise AssertionError("the wrapped flush ran a chunk")
+    monkeypatch.setitem(tit.PACKED_FLUSHES, backend, spy)
+    monkeypatch.setattr(tit, "takes_c_loop",
+                        lambda b, device, real=tit.takes_c_loop:
+                        real(b, "cuda"))
+    monkeypatch.setattr(tit.chaos, "launch_accumulate", looped)
+    prof = TProfile(width=32, height=32, quality=32, batch=1024,
+                    iters_per_chunk=8, fuse=8, de_enabled=False,
+                    hist_backend=backend)
+    r = trender.Renderer(tparams.genome_from_jax(sierpinski()), prof,
+                         device="cpu")
+    _hist, stats = r.accumulate(0.0, seed=3)
+    assert sum(calls) == stats.chunks > 1
+
+
+@pytest.mark.parametrize("backend", ["pallas_win", "pallas_merged",
+                                     "pallas_rgb16", "pallas", "atomic",
+                                     "scatter", "scatter_sorted", "sortcum",
+                                     "unpacked"])
+def test_python_loop_on_the_cpu_for_every_backend(backend, monkeypatch):
+    """A CPU render through every backend (and the unpacked path) keeps
+    the Python loop: the C loop is never entered, no chunk counts as
+    looped, and the chunks and their plotted count are the frame's."""
+    def refuse(*a, **kw):
+        raise AssertionError("entered the C loop on the CPU")
+    monkeypatch.setattr(tit.chaos, "launch_accumulate", refuse)
+    if backend == "unpacked":
+        monkeypatch.setattr(trender, "color_bits_for", lambda n_bins: 0)
+    prof = TProfile(width=32, height=32, quality=32, batch=1024,
+                    iters_per_chunk=8, fuse=8, de_enabled=False,
+                    hist_backend="scatter" if backend == "unpacked"
+                    else backend)
+    r = trender.Renderer(tparams.genome_from_jax(sierpinski()), prof,
+                         device="cpu")
+    assert r.packed == (backend != "unpacked")
+    before = trace.counters()
+    hist, stats = r.accumulate(0.0, seed=3)
+    counted = trace.since(before)
+    assert counted["looped_chunks"] == 0
+    assert counted["chunks"] == stats.chunks > 1
+    assert float(hist[:-1, 3].sum()) == stats.plotted_samples > 0

@@ -34,7 +34,14 @@ has no C++ compiler.  Contracts:
   two-seed floor (the chaos game turns ulps into other trajectories);
 - a key's library path: another for another key, the same for two
   genomes with equal keys; a key whose build fails raises with the
-  compiler's output and nothing falls back.
+  compiler's output and nothing falls back;
+- the chunk loop in C (chaos_accumulate), its flush a ctypes callback
+  running the plain counting flush: for 0-3 chunks at weight 1 and at a
+  temporal weight, the final state, the records, the histogram, the
+  chunks' counts and the float32 plotted total bit-equal to a Python
+  loop over the same host chaos_iterate and flush, the caller's state
+  never written; the fold of counts past 2^24 bit-equal to the
+  sequential float32 sum.
 """
 
 import ctypes
@@ -64,6 +71,7 @@ from cuburn_tpu_torch.kernels import build  # noqa: E402
 from cuburn_tpu_torch.models.gallery import get_genome  # noqa: E402
 from cuburn_tpu_torch.ops import camera as tcam  # noqa: E402
 from cuburn_tpu_torch.ops import chaos  # noqa: E402
+from cuburn_tpu_torch.ops import flush  # noqa: E402
 from cuburn_tpu_torch.ops import iterate as tit  # noqa: E402
 from cuburn_tpu_torch.ops import rng as trng  # noqa: E402
 from cuburn_tpu_torch.ops import variations as tvar  # noqa: E402
@@ -488,3 +496,100 @@ def test_failed_key_build_raises_without_fallback(tmp_path, monkeypatch):
     assert all(f"-D{d}" in argv for d in chaos.key_defines(key))
     assert build._LOADED == {}
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+# -- (e) the chunk loop in C -------------------------------------------------
+
+# csrc/chaos_iterate.cu's TallyFlush
+TALLY_FLUSH = ctypes.CFUNCTYPE(
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int64, ctypes.c_float, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p)
+
+
+def _loop_setup(n_iters=4):
+    plan, ts, _ = _chunk_setup("full_feature")
+    n_bins = plan.cam.n_bins
+    palette = tit.expand_palette(plan.params.palette, plan.cbits)
+    recs = torch.empty((n_iters, B), dtype=torch.int64)
+    hist = torch.rand((n_bins + 1, 4),
+                      generator=torch.Generator().manual_seed(5))
+    return plan, ts, palette, recs, hist
+
+
+def _host_loop(host_lib, plan, state, recs, hist, palette, n_chunks,
+               weight, forced=None):
+    """chaos_accumulate of the host build, its flush a callback into
+    accumulate_packed_reference with its count; `forced` replaces chunk
+    k's count by forced[k].  Returns (state, plotted, counts, the
+    records of each chunk)."""
+    pal4 = flush._aligned_pal4(palette)
+    seen = []
+
+    def tally(rec_p, n, pal_p, cbits, n_bins, w, hist_p, count_p, _s):
+        assert (rec_p, n, pal_p, hist_p) == (
+            recs.data_ptr(), recs.numel(), pal4.data_ptr(),
+            hist.data_ptr())
+        assert (cbits, n_bins) == (plan.tot_bits, plan.cam.n_bins)
+        count = torch.zeros((), dtype=torch.int64)
+        flush.accumulate_packed_reference(hist, recs, palette, n_bins,
+                                          cbits, w, count=count)
+        slot = ctypes.c_int64.from_address(count_p)
+        slot.value += int(count) if forced is None else forced[len(seen)]
+        seen.append(recs.clone())
+        return 0
+    callback = TALLY_FLUSH(tally)
+    fn = ctypes.cast(callback, ctypes.c_void_p).value
+    new, plotted, counts = chaos.accumulate_call(
+        host_lib(plan.key), plan, state, recs, n_chunks, fn, pal4,
+        plan.cam.n_bins, weight, hist, None)
+    return new, plotted, counts, seen
+
+
+@pytest.mark.parametrize("weight", [1.0, 0.325])
+@pytest.mark.parametrize("n_chunks", [0, 1, 2, 3])
+def test_c_loop_matches_the_python_loop(host_lib, n_chunks, weight):
+    plan, ts, palette, recs, hist = _loop_setup()
+    keep = {f: getattr(ts, f).clone() for f in chaos.STATE_FIELDS}
+    want_hist = hist.clone()
+    state, want_plotted, want_counts, want_recs = ts, \
+        torch.zeros((), dtype=torch.float32), [], []
+    for _ in range(n_chunks):
+        state, out = host_records(host_lib, plan, state, recs.shape[0])
+        count = torch.zeros((), dtype=torch.int64)
+        flush.accumulate_packed_reference(
+            want_hist, out, palette, plan.cam.n_bins, plan.tot_bits,
+            float(np.float32(weight)), count=count)
+        want_plotted = want_plotted + count.to(torch.float32)
+        want_counts.append(int(count))
+        want_recs.append(out)
+    got, plotted, counts, seen = _host_loop(
+        host_lib, plan, ts, recs, hist, palette, n_chunks, weight)
+    for f in chaos.STATE_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(state, f)), f
+        assert torch.equal(getattr(ts, f), keep[f]), f
+    assert len(seen) == n_chunks
+    assert all(torch.equal(a, b) for a, b in zip(seen, want_recs))
+    assert counts.tolist() == want_counts
+    assert n_chunks == 0 or sum(want_counts) > 0
+    assert torch.equal(hist, want_hist)
+    assert plotted.dtype == torch.float32
+    assert plotted.view(torch.int32) == want_plotted.view(torch.int32)
+
+
+def test_c_loop_folds_counts_past_2_24_as_float32(host_lib):
+    """Counts whose float32 running total rounds: the C fold adds each
+    chunk's count, rounded to float32, in chunk order, bit for bit as
+    the Python loop's `plotted + count.to(float32)`."""
+    plan, ts, palette, recs, hist = _loop_setup(n_iters=1)
+    forced = [(1 << 24) + 1, 3, (1 << 25) + 7, 1, (1 << 31) + 5, 1, 2]
+    _s, plotted, counts, _seen = _host_loop(
+        host_lib, plan, ts, recs, hist, palette, len(forced), 1.0,
+        forced=forced)
+    assert counts.tolist() == forced
+    want = torch.zeros((), dtype=torch.float32)
+    for c in forced:
+        want = want + torch.tensor(c, dtype=torch.int64).to(torch.float32)
+    assert plotted.view(torch.int32) == want.view(torch.int32)
+    # the totals round: the exact sum differs
+    assert float(want) != float(sum(forced))

@@ -66,6 +66,7 @@ from cuburn_tpu_torch.ops import tiled_sort  # noqa: E402
 from cuburn_tpu_torch.ops import variations as tvar  # noqa: E402
 from cuburn_tpu_torch.probes import bf16probe  # noqa: E402
 from cuburn_tpu_torch.profile import RenderProfile  # noqa: E402
+from cuburn_tpu_torch.utils import trace  # noqa: E402
 
 N_BINS = 300 * 200
 
@@ -512,6 +513,42 @@ def test_scatter_flush_edge_cases(cuda, backend, case, cols, weight):
     assert (err <= 1e-5 * np.maximum(ref[:N_BINS, 3:4], 1.0)).all()
 
 
+@pytest.mark.parametrize("case", SCATTER_CASES + ("real_2_22",))
+@pytest.mark.parametrize("cols,weight", [(3, None), (4, 0.375)])
+def test_packed_flush_counts_its_plotted_records(cuda, case, cols, weight):
+    """packed_flush's counting entry adds the records whose address is
+    not the junk bin to the count, exactly as the plain version counts
+    them (records past the junk bin included), on top of what the count
+    held; the histogram as the flush without a count leaves it (density
+    exact at weight 1.0, the rest within 1e-5 of the bin's density); one
+    launch, counted under packed_flush.  real_2_22: 2^22 records, 3%
+    junk, 8192 blocks."""
+    if case == "real_2_22":
+        rs = np.random.RandomState(22)
+        n = 1 << 22
+        addr = np.where(rs.rand(n) < 0.03, N_BINS, rs.randint(0, N_BINS, n))
+        rec = (addr.astype(np.int64) << 8) | rs.randint(0, 256, n)
+    else:
+        rec = scatter_records(case, N_BINS)
+    rec_d = torch.as_tensor(rec, device=cuda)
+    pal = torch.as_tensor(dyadic_palette(cols))
+    count = torch.full((), 5, dtype=torch.int64, device=cuda)
+    before = flush.LAUNCHES["packed_flush"]
+    got = flush.accumulate_packed(thist.alloc(N_BINS, cuda), rec_d,
+                                  pal.to(cuda), N_BINS, 8, weight=weight,
+                                  count=count).cpu().numpy()
+    assert flush.LAUNCHES["packed_flush"] == before + 1
+    want = torch.full((), 5, dtype=torch.int64)
+    ref = flush.accumulate_packed_reference(
+        thist.alloc(N_BINS, "cpu"), torch.as_tensor(rec), pal, N_BINS, 8,
+        weight=weight, count=want).numpy()
+    assert int(count) == int(want) == 5 + int(((rec >> 8) != N_BINS).sum())
+    if weight is None:
+        np.testing.assert_array_equal(got[:, 3], ref[:, 3])
+    err = np.abs(got[:N_BINS] - ref[:N_BINS])
+    assert (err <= 1e-5 * np.maximum(ref[:N_BINS, 3:4], 1.0)).all()
+
+
 @pytest.mark.parametrize("case", SCATTER_CASES)
 def test_merged_kernel_alone_on_sorted_records(cuda, case):
     """merged_flush launched alone on sorted records without the sort's
@@ -633,11 +670,25 @@ def test_auto_backend_is_the_windowed_kernel(cuda):
     assert trender.Renderer(sierpinski(), prof).backend == "atomic"
 
 
+def _still_launches(r, seed):
+    """Renderer r's accumulate on `seed` as production runs it: (hist,
+    stats, the launches of each kernel, the chunks counted as looped)."""
+    before = (dict(flush.LAUNCHES), tiled_sort.LAUNCHES["bitonic_sort"],
+              chaos.LAUNCHES["chaos_iterate"], trace.COUNTS["looped_chunks"])
+    hist, stats = r.accumulate(0.0, seed=seed)
+    launches = {k: v - before[0][k] for k, v in flush.LAUNCHES.items()}
+    launches["bitonic_sort"] = tiled_sort.LAUNCHES["bitonic_sort"] - before[1]
+    launches["chaos_iterate"] = chaos.LAUNCHES["chaos_iterate"] - before[2]
+    return hist, stats, launches, trace.COUNTS["looped_chunks"] - before[3]
+
+
 @pytest.fixture(scope="module")
 def default_still():
     """A full_feature 1080p still at quality 10 through `auto` and again
     through `pallas_win`, from one seed, with no tune record: each
-    backend's flush records and launches, and each histogram."""
+    backend's launches, histogram and stats as production runs it, and
+    again through the Python chunk loop with its flush wrapped, for each
+    flush's records (the C loop flushes from C, unseen)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                     "False)")
@@ -647,6 +698,7 @@ def default_still():
         r = trender.Renderer(full_feature(),
                              get_profile("1080p", quality=10,
                                          hist_backend=asked))
+        hist, stats, launches, looped = _still_launches(r, 7)
         real, seen = tit.PACKED_FLUSHES[r.backend], []
 
         def keep(hist, recs, palette_hi, n_bins, bits, weight=None):
@@ -654,41 +706,49 @@ def default_still():
             return real(hist, recs, palette_hi, n_bins, bits, weight)
         with pytest.MonkeyPatch.context() as mp:
             mp.setitem(tit.PACKED_FLUSHES, r.backend, keep)
-            before = (dict(flush.LAUNCHES),
-                      tiled_sort.LAUNCHES["bitonic_sort"],
-                      chaos.LAUNCHES["chaos_iterate"])
-            hist, stats = r.accumulate(0.0, seed=7)
-        launches = {k: v - before[0][k] for k, v in flush.LAUNCHES.items()}
-        launches["bitonic_sort"] = \
-            tiled_sort.LAUNCHES["bitonic_sort"] - before[1]
-        launches["chaos_iterate"] = \
-            chaos.LAUNCHES["chaos_iterate"] - before[2]
+            mp.setattr(tit, "takes_c_loop", lambda backend, device: False)
+            py_hist, py_stats = r.accumulate(0.0, seed=7)
         out[asked] = dict(renderer=r, records=seen, launches=launches,
-                          hist=hist, stats=stats)
+                          looped=looped, hist=hist, stats=stats,
+                          python_hist=py_hist, python_stats=py_stats)
     return out
 
 
 def test_default_still_flushes_unsorted(cuda, default_still):
     """A 1080p still through `auto` resolves to `atomic`: no sort pass,
-    one packed_flush a chunk and no other flush, on the very records
-    (colour bits, chaos-kernel output) that `pallas_win` flushes; the
-    density equals `pallas_win`'s in every bin."""
+    one packed_flush a chunk and no other flush, every chunk queued by
+    the C loop, on the very records (colour bits, chaos-kernel output)
+    that `pallas_win` flushes; the density equals `pallas_win`'s in
+    every bin."""
     a, w = default_still["auto"], default_still["pallas_win"]
     assert a["renderer"].backend == "atomic"
     assert trender.histogram_tiled(a["renderer"].cam.n_bins, cuda)
     chunks = a["launches"]["chaos_iterate"]
-    assert chunks == len(a["records"]) > 1
+    assert chunks == len(a["records"]) == a["looped"] > 1
     assert a["launches"] == {"win_flush": 0, "packed_flush": chunks,
                              "merged_flush": 0, "win_flush_rgb16": 0,
                              "bitonic_sort": 0, "chaos_iterate": chunks}
     assert w["launches"]["win_flush"] == chunks
     assert w["launches"]["bitonic_sort"] > 0
+    assert w["looped"] == 0
     assert len(w["records"]) == chunks
     for (ra, pa, ba), (rw, pw, bw) in zip(a["records"], w["records"]):
         assert ba == bw == 8
         assert torch.equal(ra, rw) and torch.equal(pa, pw)
     assert a["stats"].plotted_samples == w["stats"].plotted_samples > 0
     assert torch.equal(a["hist"][:, 3], w["hist"][:, 3])
+
+
+def test_default_still_c_loop_matches_the_python_loop(cuda, default_still):
+    """The 1080p still's C loop (hundreds of chunks, their counts folded
+    by plotted_fold) against the Python loop on the same seed: plotted
+    bit-equal, density equal in every bin, the histogram's mass the
+    plotted count."""
+    a = default_still["auto"]
+    assert a["stats"].plotted_samples == a["python_stats"].plotted_samples
+    assert torch.equal(a["hist"][:, 3], a["python_hist"][:, 3])
+    mass = float(a["hist"][:-1, 3].double().sum())
+    assert abs(mass - a["stats"].plotted_samples) <= 1e-4 * mass
 
 
 def test_atomic_matches_pallas_win_on_a_real_flush(cuda, default_still):
@@ -1304,6 +1364,100 @@ def test_chaos_raises_when_build_fails(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         trender.Renderer(full_feature(), RenderProfile(width=32, height=32))
     assert chaos.LAUNCHES["chaos_iterate"] == before
+
+
+# -- the chunk loop in C (chaos_accumulate) -----------------------------------
+
+def _launch_counts():
+    return (chaos.LAUNCHES["chaos_iterate"], flush.LAUNCHES["packed_flush"],
+            chaos.LAUNCHES["plotted_fold"], trace.COUNTS["looped_chunks"])
+
+
+def _accumulate_both_ways(cuda, n_chunks, weight, monkeypatch):
+    """iterate_accumulate through `atomic` from one plan and state, once
+    through the C loop and once through the Python loop: {way: (state,
+    hist, plotted, launches counted)} and the input state's copy."""
+    plan, st = _chaos_setup("full_feature", cuda)
+    keep = {f: getattr(st, f).clone() for f in chaos.STATE_FIELDS}
+    out = {}
+    for way in ("c", "python"):
+        if way == "python":
+            monkeypatch.setattr(tit, "takes_c_loop", lambda f, d: False)
+        hist = thist.alloc(plan.cam.n_bins, cuda)
+        before = _launch_counts()
+        new, hist, plotted = tit.iterate_accumulate(
+            plan.key, plan.cam, "atomic", plan.params, plan.cdf_rows, st,
+            hist, plan.ppu, n_chunks, 8, plan.fuse, weight=weight)
+        torch.cuda.synchronize()
+        out[way] = (new, hist, plotted, tuple(
+            a - b for a, b in zip(_launch_counts(), before)))
+    return out, st, keep
+
+
+@pytest.mark.parametrize("weight", [None, 0.325])
+@pytest.mark.parametrize("n_chunks", [0, 1, 2, 5])
+def test_c_loop_matches_the_python_loop(cuda, chaos_keys_built, n_chunks,
+                                        weight, monkeypatch):
+    """The C loop against the Python loop on the same plan and state:
+    the final state, the plotted float32 total and (at weight 1) the
+    density bit-equal; rgb, and density at a temporal weight, within
+    1e-5 of the bin's density plus float32 reassociation (the atomics
+    add in no fixed order on either path); the same chaos_iterate and
+    packed_flush launches, one plotted_fold where there is a chunk; the
+    caller's state untouched; the chunks counted as looped."""
+    out, st, keep = _accumulate_both_ways(cuda, n_chunks, weight,
+                                          monkeypatch)
+    (cs, ch, cp, cl), (ps, ph_, pp, pl) = out["c"], out["python"]
+    for f in chaos.STATE_FIELDS:
+        assert torch.equal(getattr(cs, f), getattr(ps, f)), f
+        assert torch.equal(getattr(st, f), keep[f]), f
+    assert cp.dtype == pp.dtype == torch.float32
+    assert torch.equal(cp.view(torch.int32), pp.view(torch.int32))
+    assert cl[:2] == pl[:2] == (n_chunks, n_chunks)
+    assert cl[2:] == ((1, n_chunks) if n_chunks else (0, 0))
+    assert pl[2:] == (0, 0)
+    if weight is None:
+        assert torch.equal(ch[:, 3], ph_[:, 3])
+        assert float(ch[:-1, 3].sum()) == float(cp)
+        assert n_chunks == 0 or float(cp) > 0
+    dens = ph_[:, 3:].clamp(min=1.0)
+    err = (ch - ph_).abs()
+    assert bool((err <= 1e-5 * dens + dens * 2.0 ** -24 * ph_.abs()).all())
+
+
+def _other_kernels(r, quality, cuda):
+    """Renderer r's accumulate at `quality` under torch.profiler: (its
+    chunks, the kernel events that are not the loop's hand kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    r.profile = dataclasses.replace(r.profile, quality=quality)
+    before = trace.counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _h, stats = r.accumulate(0.0, seed=4)
+        torch.cuda.synchronize()
+    counted = trace.since(before)
+    assert counted["looped_chunks"] == counted["chunks"] == stats.chunks
+    hand = ("chaos_iterate_kernel", "packed_flush_kernel",
+            "plotted_fold_kernel")
+    kernels = [e.name for e in prof.events()
+               if str(e.device_type).endswith("CUDA")]
+    assert sum("packed_flush_kernel" in k for k in kernels) == stats.chunks
+    return stats.chunks, sorted(k for k in kernels
+                                if not any(h in k for h in hand))
+
+
+def test_render_launches_no_torch_kernel_a_chunk(cuda):
+    """A still through `auto` (`atomic`) queues every chunk from C: the
+    torch kernels of its accumulate are the same at two qualities whose
+    chunks differ, and every chunk counts as looped."""
+    r = trender.Renderer(full_feature(), RenderProfile(
+        width=128, height=128, quality=200, batch=8192, de_enabled=False))
+    assert r.backend == "atomic"
+    r.accumulate(0.0, seed=4)        # warm
+    few, a = _other_kernels(r, 200, cuda)
+    many, b = _other_kernels(r, 600, cuda)
+    assert many > few > 1
+    assert a == b
 
 
 # -- the bf16 probe (csrc/bf16_probe.cu) ------------------------------------

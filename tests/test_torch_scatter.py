@@ -14,7 +14,11 @@ pad to their block size with junk records, so the junk bin is left out.
 
 Also here: what the wrappers do on a CUDA tensor, with the launch
 replaced by a recorder: one launch a flush, and nothing but the sort in
-front of the merged kernel.
+front of the merged kernel; with a plotted count, the counting entry.
+The plotted count of the plain unsorted flush: it adds
+`((recs >> bits) != n_bins).sum()` (records past the junk bin count,
+as the render loop's count does) and leaves the histogram as the flush
+without a count leaves it.
 """
 
 import ctypes
@@ -174,8 +178,9 @@ def test_packed_wrapper_is_one_launch(monkeypatch, n):
 
 def test_scatter_flush_entries():
     """merged_flush takes sorted records (no counts array any more); the
-    counting debug entry is packed_flush's signature plus the counter,
-    and counts its launch under packed_flush."""
+    counting debug entry and the plotted-count entry are packed_flush's
+    signature plus one pointer, and count their launches under
+    packed_flush."""
     p, i64, f = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
     packed = (p, i64, p, ctypes.c_int, i64, f, p)
     assert flush._ENTRIES["packed_flush"] == ("scatter_flush",
@@ -184,5 +189,122 @@ def test_scatter_flush_entries():
                                               "merged_flush", packed)
     assert flush._ENTRIES["packed_flush_counted"] == (
         "scatter_flush", "packed_flush", packed + (p,))
+    assert flush._ENTRIES["packed_flush_tally"] == (
+        "scatter_flush", "packed_flush", packed + (p,))
     assert set(kernel for _, kernel, _ in flush._ENTRIES.values()) \
         == set(flush.LAUNCHES)
+
+
+def _count_records(case):
+    """Records of one kind of junk share: every record at the junk bin,
+    none, 97% (with a few past it), or addresses past the junk bin."""
+    rs = np.random.RandomState(7)
+    n = 3000
+    q = rs.randint(0, 1 << BITS, n)
+    addr = {"all_junk": np.full(n, N_BINS),
+            "no_junk": rs.randint(0, N_BINS, n),
+            "mixed": np.where(rs.rand(n) < 0.97, N_BINS,
+                              rs.randint(0, N_BINS, n)),
+            "past_the_junk_bin": rs.randint(N_BINS - 5, N_BINS + 40, n),
+            }[case]
+    return torch.as_tensor((addr.astype(np.int64) << BITS) | q)
+
+
+@pytest.mark.parametrize("case", ["all_junk", "no_junk", "mixed",
+                                  "past_the_junk_bin"])
+@pytest.mark.parametrize("cols,weight", [(3, None), (4, 0.375)])
+def test_plain_count_is_the_records_off_the_junk_bin(case, cols, weight):
+    rec = _count_records(case)
+    pal = torch.as_tensor(dyadic_palette(cols))
+    want = int(((rec >> BITS) != N_BINS).sum())
+    assert {"all_junk": want == 0, "no_junk": want == rec.numel(),
+            "mixed": 0 < want < rec.numel() // 10,
+            "past_the_junk_bin": 0 < want < rec.numel()}[case]
+    plain = _plain(flush.accumulate_packed_reference, rec, pal, weight)
+    for fn in (flush.accumulate_packed_reference, flush.accumulate_packed):
+        count = torch.tensor(5, dtype=torch.int64)
+        hist = fn(thist.alloc(N_BINS, "cpu"), rec, pal, N_BINS, BITS,
+                  weight=weight, count=count)
+        assert int(count) == 5 + want
+        np.testing.assert_array_equal(hist.numpy(), plain)
+
+
+def test_count_must_be_one_int64():
+    rec, pal = _count_records("mixed"), torch.as_tensor(dyadic_palette(3))
+    for bad in (torch.zeros(2, dtype=torch.int64),
+                torch.zeros((), dtype=torch.float32)):
+        with pytest.raises(ValueError, match="one int64"):
+            flush.accumulate_packed_reference(
+                thist.alloc(N_BINS, "cpu"), rec, pal, N_BINS, BITS,
+                count=bad)
+
+
+@pytest.mark.parametrize("n", [0, 1, 4097])
+def test_packed_wrapper_counts_through_the_tally_entry(monkeypatch, n):
+    """With a count, accumulate_packed launches the counting entry once,
+    the count's pointer last; no records, no launch."""
+    launched = _record_launches(monkeypatch)
+    rec = torch.as_tensor(scatter_records("junk_97", N_BINS))[:n]
+    count = torch.zeros((), dtype=torch.int64)
+    flush.accumulate_packed(
+        thist.alloc(N_BINS, "cpu"), rec, torch.as_tensor(dyadic_palette(3)),
+        N_BINS, BITS, count=count)
+    assert len(launched) == (n > 0)
+    if n:
+        (entry, args), = launched
+        assert entry == "packed_flush_tally"
+        assert args[1] == n and args[-1] == count.data_ptr()
+
+
+def test_looped_flush_takes_aligned_cuda_records_only(monkeypatch):
+    """The C loop writes the records in place, so its flush refuses what
+    the one-flush wrapper would copy: CPU records, and records off a
+    16-byte boundary, before any library is loaded."""
+    def no_load(*a, **kw):
+        raise AssertionError("loaded a library")
+    monkeypatch.setattr(flush._build, "load", no_load)
+    pal = torch.as_tensor(dyadic_palette(3))
+    rec = torch.as_tensor(scatter_records("all_distinct", N_BINS))
+    with pytest.raises(ValueError, match="16-byte"):
+        flush.looped_flush(thist.alloc(N_BINS, "cpu"), rec, pal, N_BINS,
+                           BITS)
+    monkeypatch.setattr(flush, "_device_of", lambda t: "cuda")
+    off = rec[1:] if rec.data_ptr() % 16 == 0 else rec[2:]
+    with pytest.raises(ValueError, match="16-byte"):
+        flush.looped_flush(thist.alloc(N_BINS, "cpu"), off, pal, N_BINS,
+                           BITS)
+
+
+@pytest.mark.parametrize("n_records", [0, 64])
+def test_looped_flushes_count_one_launch_a_chunk(n_records, monkeypatch):
+    """chaos.launch_accumulate counts the launches of its C call where it
+    makes it: a chaos_iterate and a packed_flush a chunk (no flush where
+    a chunk holds no record) and one plotted_fold.  The call itself is
+    stood in, since it runs on the card only."""
+    from types import SimpleNamespace
+
+    from cuburn_tpu_torch.ops import chaos
+    pal = torch.as_tensor(dyadic_palette(3))
+    recs = torch.zeros((1, n_records), dtype=torch.int64)
+    plan = SimpleNamespace(key=None, cam=SimpleNamespace(n_bins=N_BINS),
+                           tot_bits=BITS)
+    seen = {}
+
+    def call(lib, p, state, recs, n_chunks, flush_fn, pal4, n_bins,
+             weight, hist, stream):
+        seen.update(n_chunks=n_chunks, weight=weight, n_bins=n_bins)
+        return state, torch.zeros(()), None
+    monkeypatch.setattr(flush, "looped_flush", lambda *a: (0, pal))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(chaos, "load", lambda key: None)
+    monkeypatch.setattr(chaos, "accumulate_call", call)
+    monkeypatch.setitem(flush.LAUNCHES, "packed_flush", 0)
+    monkeypatch.setitem(chaos.LAUNCHES, "chaos_iterate", 0)
+    monkeypatch.setitem(chaos.LAUNCHES, "plotted_fold", 0)
+    chaos.launch_accumulate(plan, "state", recs, thist.alloc(N_BINS, "cpu"),
+                            pal, 7, None)
+    assert seen == dict(n_chunks=7, weight=1.0, n_bins=N_BINS)
+    assert flush.LAUNCHES["packed_flush"] == (7 if n_records else 0)
+    assert chaos.LAUNCHES["chaos_iterate"] == 7
+    assert chaos.LAUNCHES["plotted_fold"] == 1

@@ -12,7 +12,11 @@ Contracts:
 - images are bit-equal with the profiler on and off;
 - the filter's stages (`logscale`, `de`, `downsample`, `colorclip`) are
   spans nested in `filter`, once each a frame, in a still and in
-  overlapped frames, and the null context without a profiler.
+  overlapped frames, and the null context without a profiler;
+- where the chunk loop runs in C (the card's unsorted packed flush,
+  stood in for here), one `loop` span a sample wraps the call in place
+  of the `chunk` and `count` spans, and COUNTS["looped_chunks"] counts
+  its chunks beside COUNTS["chunks"]; the Python loop counts none.
 """
 
 import collections
@@ -33,6 +37,7 @@ from cuburn_tpu_torch.bench import _card  # noqa: E402
 from cuburn_tpu_torch.genome.specs import GenomeParams  # noqa: E402
 from cuburn_tpu_torch.models import get_genome  # noqa: E402
 from cuburn_tpu_torch.ops import de as de_mod  # noqa: E402
+from cuburn_tpu_torch.ops import iterate as tit  # noqa: E402
 from cuburn_tpu_torch.ops import tiled_sort  # noqa: E402
 from cuburn_tpu_torch.profile import RenderProfile  # noqa: E402
 from cuburn_tpu_torch.utils import timing, trace  # noqa: E402
@@ -119,7 +124,7 @@ def test_span_without_a_profiler_is_the_shared_null_context(monkeypatch):
         torch.float32
     timing.sync("cpu")
     assert trace.since(before) == {"chunks": 0, "records": 0, "syncs": 3,
-                                   "launches": 0}
+                                   "looped_chunks": 0, "launches": 0}
 
 
 def test_still_spans_equal_its_counters(tmp_path):
@@ -287,3 +292,48 @@ def test_metrics_line_carries_the_counters():
     rec = tmain._stats_record(0, 0.0, stats)
     assert (rec["chunks"], rec["records"], rec["launches"],
             rec["syncs"]) == (2, 64, 34, 80)
+
+
+def _c_loop_stand_in(monkeypatch):
+    """Take the C loop's branch on the CPU, its call replaced by one that
+    returns the state and a zero count: the spans and counters around
+    it are the iterate_accumulate's own."""
+    calls = []
+
+    def looped(plan, state, recs, hist, palette_hi, n_chunks, weight):
+        calls.append(n_chunks)
+        return state, torch.zeros((), dtype=torch.float32)
+    monkeypatch.setattr(tit, "takes_c_loop", lambda backend, device: True)
+    monkeypatch.setattr(tit.chaos, "launch_accumulate", looped)
+    return calls
+
+
+@pytest.mark.parametrize("make", ["still", "anim"])
+def test_loop_span_and_looped_chunks_where_the_loop_is_in_c(
+        make, monkeypatch, tmp_path):
+    r = _still() if make == "still" else _anim()
+    calls = _c_loop_stand_in(monkeypatch)
+    before = trace.counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _hist, stats = r.accumulate(0.0, seed=3)
+    counted = trace.since(before)
+    spans = _spans(_events(prof, tmp_path))
+    counts = collections.Counter(n for n, _s, _e in spans)
+    samples = r.profile.temporal_samples
+    assert len(calls) == counts["loop"] == counts["sample"] == samples
+    assert counts["chunk"] == counts["count"] == 0
+    assert counted["looped_chunks"] == counted["chunks"] == stats.chunks \
+        == sum(calls) > 0
+    for _n, s, e in (x for x in spans if x[0] == "loop"):
+        assert any(o[0] == "sample" and o[1] <= s and e <= o[2]
+                   for o in spans)
+
+
+def test_python_loop_counts_no_looped_chunks(tmp_path):
+    before = trace.counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _hist, stats = _still().accumulate(0.0, seed=3)
+    counts = collections.Counter(
+        n for n, _s, _e in _spans(_events(prof, tmp_path)))
+    assert trace.since(before)["looped_chunks"] == counts["loop"] == 0
+    assert counts["chunk"] == counts["count"] == stats.chunks > 0
