@@ -241,6 +241,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import dataclasses
 import io
 import itertools
 import json
@@ -1061,7 +1062,7 @@ def phase_render_backend(torch, flush, tiled_sort, tit, Renderer, genome,
     sorts = tiled_sort.LAUNCHES["bitonic_sort"]
     chaos_launches = launches_now(flush, tiled_sort)["chaos_iterate"]
     probe = probe_launches(flush, tiled_sort)
-    looped = flushes if backend in tit.C_LOOP_BACKENDS else 0
+    looped = flushes if tit.takes_c_loop(backend, "cuda") else 0
     check(counted["looped_chunks"] == looped,
           f"the {backend} render queued {counted['looped_chunks']} of "
           f"{flushes} chunks from C, expected {looped}")
@@ -1600,8 +1601,9 @@ def phase_partition(torch, flush, sort, tiled_sort, thist, tit, write_image,
         chunk.append(None)
         if len(chunk) == 2:
             chunk[1] = (addr.reshape(-1).clone(), rgba.reshape(-1, 4).clone())
-        return scatter(hist, addr, rgba)
-    thist.BACKENDS["scatter"] = keep_second
+        return scatter.accumulate(hist, addr, rgba)
+    thist.BACKENDS["scatter"] = dataclasses.replace(scatter,
+                                                    accumulate=keep_second)
     reset_launches(flush, tiled_sort)
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -2087,8 +2089,8 @@ def phase_tuner(torch, flush, tiled_sort, Renderer, full_feature,
     1080p Renderer applies the record's tiled keys, the same record
     with its picks set (pallas_rgb16, 2^23 records a tiled flush) moves
     the Renderer to them, and the repo's TPU record is skipped."""
-    from cuburn_tpu_torch import render as trender
     from cuburn_tpu_torch import retune
+    from cuburn_tpu_torch.ops import histogram as thist
     kind = torch.cuda.get_device_name(0)
     l2 = torch.cuda.get_device_properties(0).L2_cache_size
     out_dir = os.path.join(REPO, "smoke_out")
@@ -2147,7 +2149,7 @@ def phase_tuner(torch, flush, tiled_sort, Renderer, full_feature,
             err = io.StringIO()
             with contextlib.redirect_stderr(err):
                 r = Renderer(full_feature(), prof)
-            check(trender.histogram_tiled(r.cam.n_bins, r.device),
+            check(thist.histogram_tiled(r.cam.n_bins, r.device),
                   "the 1080p-ss2 histogram is not past L2")
             if want is not None:
                 backend = want["hist_backend_tiled"]

@@ -24,7 +24,8 @@ import time
 
 from cuburn_tpu_torch.bench._card import Chaos, card
 from cuburn_tpu_torch.bench.headline import sizes
-from cuburn_tpu_torch.ops.iterate import hist_alloc_for, iterate_accumulate
+from cuburn_tpu_torch.ops.histogram import hist_alloc_for
+from cuburn_tpu_torch.ops.iterate import iterate_accumulate
 from cuburn_tpu_torch.utils.timing import sync
 
 

@@ -6,7 +6,7 @@ flushes, timed between device syncs after a warm call, on full_feature
 (parametric variations, a final xform, xaos) at 512x512, batch 2^15,
 64 steps a flush, 2^25 iterations; `--cpu` takes the JAX CPU branch's
 128x128, 2^12, 16 and 2^19.  A tune record for this device
-(`render._load_tune`) sets the flush size from its `flush_records`.
+(`retune._load_tune`) sets the flush size from its `flush_records`.
 
 Both `scatter` and `pallas_win` run from the same seed; the faster is
 the headline.  On the card `pallas_win` is the chaos kernel, the tiled
@@ -48,9 +48,11 @@ import torch
 from cuburn_tpu_torch.bench._card import (Chaos, bin_differential, card,
                                           launches, reset_launches)
 from cuburn_tpu_torch.models import full_feature
-from cuburn_tpu_torch.ops.iterate import hist_alloc_for, iterate_accumulate
+from cuburn_tpu_torch.ops.histogram import hist_alloc_for
+from cuburn_tpu_torch.ops.iterate import iterate_accumulate
 from cuburn_tpu_torch.profile import RenderProfile
-from cuburn_tpu_torch.render import Renderer, _filter_frame, _load_tune
+from cuburn_tpu_torch.render import Renderer, _filter_frame
+from cuburn_tpu_torch.retune import _load_tune
 from cuburn_tpu_torch.utils.timing import sync
 
 RECALLED_BASELINE_SAMPLES_PER_SEC = 400e6

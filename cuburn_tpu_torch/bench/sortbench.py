@@ -127,8 +127,10 @@ def main(argv=None) -> int:
                           "ok": err <= bound}), flush=True)
 
     truth = bincount(addr_np, rgba_np, n_bins)
-    for label, scatter in hm.BACKENDS.items():
-        row(label, lambda h, f=scatter: f(h, addr, rgba), n_bins, truth)
+    for label, b in hm.BACKENDS.items():
+        if not b.packed:
+            row(label, lambda h, f=b.accumulate: f(h, addr, rgba), n_bins,
+                truth)
     truth_p = unpacked_truth(cbits, pal_hi, packed, n_bins)
     row("pallas", lambda h: fl.accumulate_packed(h, packed, pal_hi, n_bins,
                                                  cbits), n_bins, truth_p)
@@ -143,7 +145,7 @@ def main(argv=None) -> int:
     print(json.dumps({"dense": {"records": M, "bins": bins_d}}), flush=True)
     truth_d = bincount(addr_d_np, rgba_d_np, bins_d)
     for label in ("scatter", "scatter_sorted"):
-        row(f"{label} (dense)", lambda h, f=hm.BACKENDS[label]: f(
+        row(f"{label} (dense)", lambda h, f=hm.BACKENDS[label].accumulate: f(
             h, addr_d, rgba_d), bins_d, truth_d)
     row("pallas_win (dense)", lambda h: fl.accumulate_windowed(
         h, p8d, pal8, bins_d, 8), bins_d, unpacked_truth(8, pal8, p8d, bins_d))

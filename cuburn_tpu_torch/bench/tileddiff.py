@@ -3,7 +3,7 @@
 Port of `bench/tileddiff.py`.  The headline's scatter-against-pallas_win
 check runs at 512x512, whose histogram sits in the card's L2.  This
 runs the same differential where the float32 histogram is past L2
-(`render.histogram_tiled`, the port's meaning of "tiled"), so win_flush
+(`ops/histogram.histogram_tiled`, the port's meaning of "tiled"), so win_flush
 streams it from device memory.  The JAX probe's 1280x720 default fits
 in an H100's 50 MB L2, so the default geometry here is the main path's
 accumulator, full_feature's 1080p ss2 frame with its gutter: 3896x2216
@@ -25,9 +25,9 @@ import json
 
 import torch
 
-from cuburn_tpu_torch import render
 from cuburn_tpu_torch.bench._card import Chaos, bin_differential, card
-from cuburn_tpu_torch.ops.iterate import hist_alloc_for, iterate_accumulate
+from cuburn_tpu_torch.ops import histogram as hist_mod
+from cuburn_tpu_torch.ops.iterate import iterate_accumulate
 from cuburn_tpu_torch.utils.timing import sync
 
 
@@ -45,7 +45,7 @@ def main(argv=None) -> int:
     ff = Chaos.full_feature(args.width, args.height, device)
     B = 1 << 11 if args.cpu else 1 << 15
     n_bins = ff.cam.n_bins
-    tiled = render.histogram_tiled(n_bins, device)
+    tiled = hist_mod.histogram_tiled(n_bins, device)
     l2 = (torch.cuda.get_device_properties(device).L2_cache_size
           if device.type == "cuda" else None)
     print(json.dumps({"probe": "tiled-per-bin-differential",
@@ -59,7 +59,7 @@ def main(argv=None) -> int:
 
     logical = {}
     for backend in ("scatter", "pallas_win"):
-        hist = hist_alloc_for(backend, n_bins, device)
+        hist = hist_mod.hist_alloc_for(backend, n_bins, device)
         _state, hist, n = iterate_accumulate(
             ff.key, ff.cam, backend, ff.params, ff.cdf, ff.state(B, device),
             hist, ff.ppu, args.chunks, args.ipc, 32)

@@ -34,6 +34,7 @@ import time
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from cuburn_tpu_torch.ops.histogram import BACKENDS
     p = argparse.ArgumentParser(
         prog="cuburn-tpu-torch",
         description="fractal flame renderer (flam3/cuburn-compatible) "
@@ -65,10 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override profile frames per second")
     p.add_argument("--duration", type=float,
                    help="override animation duration in seconds")
-    p.add_argument("--hist-backend",
-                   choices=["auto", "scatter", "scatter_sorted",
-                            "sortcum", "pallas", "pallas_merged",
-                            "pallas_win", "pallas_rgb16", "atomic"],
+    p.add_argument("--hist-backend", choices=("auto", *BACKENDS),
                    help="histogram accumulation backend")
     p.add_argument("--no-de", action="store_true",
                    help="disable density-estimation filtering")

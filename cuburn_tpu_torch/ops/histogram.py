@@ -6,18 +6,24 @@ density per bin, float32, with a junk bin at index n_bins that
 receives masked and out-of-bounds points.  Density can pass 2^24, so
 the histogram is always f32.
 
-The registry holds the XLA backends of the JAX package, as plain
-PyTorch: `scatter` (index_add_), `scatter_sorted` (sort by address,
-then index_add_) and `sortcum` (sort, float64 prefix sums, run-end
-placement, running max, difference: no scatter-add at all).  None is a
-kernel.  Every backend updates `hist` in place and returns it.  The
-flushes of packed records (`pallas`, `pallas_merged`, `pallas_win`,
-`pallas_rgb16`, `atomic`) live in `ops/flush.py`.
+`BACKENDS` is the one table of what each histogram backend is.  The
+XLA backends of the JAX package are here, as plain PyTorch: `scatter`
+(index_add_), `scatter_sorted` (sort by address, then index_add_) and
+`sortcum` (sort, float64 prefix sums, run-end placement, running max,
+difference: no scatter-add at all).  None is a kernel.  Every backend
+updates `hist` in place and returns it.  The flushes of packed records
+(`pallas`, `pallas_merged`, `pallas_win`, `pallas_rgb16`, `atomic`)
+live in `ops/flush.py`.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Callable, Optional
+
 import torch
+
+from cuburn_tpu_torch.ops import flush as flush_mod
 
 
 def alloc(n_bins: int, device: torch.device | str) -> torch.Tensor:
@@ -78,16 +84,82 @@ def accumulate_sortcum(hist, addr, rgba):
                      .to(hist.dtype))
 
 
+@dataclass(frozen=True)
+class Backend:
+    """What a histogram backend is: every fact the render path would
+    otherwise test by the backend's name."""
+    # its accumulate on unpacked (addr, rgba) rows; None for a flush of
+    # packed u32 records only (ops/iterate.PACKED_FLUSHES)
+    accumulate: Optional[Callable] = None
+    color_bits: Optional[int] = None    # cap on a record's colour bits
+    split: bool = False         # f32 density, bf16 rgb (hist_alloc_for)
+    c_loop: bool = False        # the card's C chunk loop queues its flush
+    tunable: bool = False       # a tune record may pick it for `auto`
+    tiled_flush: bool = False   # `tiled_flush_records` sets its flush size
+
+    @property
+    def packed(self) -> bool:
+        return self.accumulate is None
+
+
+# the JAX package's backends and the port's own `atomic`: `pallas`'s
+# unsorted flush on `pallas_win`'s 8-bit records (a TPU has no
+# scatter-add).  8 colour bits are flam3's palette resolution, and keep
+# `pallas_win`'s records bit-identical to the JAX package's.
 BACKENDS = {
-    "scatter": accumulate_scatter,
-    "scatter_sorted": accumulate_scatter_sorted,
-    "sortcum": accumulate_sortcum,
+    "scatter": Backend(accumulate_scatter, tunable=True),
+    "scatter_sorted": Backend(accumulate_scatter_sorted, tunable=True),
+    "sortcum": Backend(accumulate_sortcum),
+    "pallas": Backend(c_loop=True),
+    "pallas_merged": Backend(),
+    "pallas_win": Backend(color_bits=8, tunable=True, tiled_flush=True),
+    "pallas_rgb16": Backend(color_bits=8, split=True, tunable=True,
+                            tiled_flush=True),
+    "atomic": Backend(color_bits=8, c_loop=True, tunable=True),
 }
 
 
-def get_backend(name: str):
+def get_backend(name: str) -> Backend:
+    """The backend named `name`; ValueError for a name not in BACKENDS."""
     try:
         return BACKENDS[name]
     except KeyError:
         raise ValueError(
             f"unknown histogram backend {name!r}; have {sorted(BACKENDS)}")
+
+
+def hist_alloc_for(backend: str, n_bins: int, device):
+    """The zeroed histogram in the layout the backend accumulates into:
+    the split (density f32, rgb bf16) pair for a `split` backend, the
+    logical (n_bins+1, 4) float32 tensor for every other backend."""
+    if get_backend(backend).split:
+        return flush_mod.alloc_split(n_bins, device)
+    return alloc(n_bins, device)
+
+
+def hist_to_layout(backend: str, hist):
+    """Logical (n_bins+1, 4) -> the backend's layout.  The split layout
+    rounds rgb to bf16 once."""
+    if get_backend(backend).split:
+        return flush_mod.to_split_layout(hist)
+    return hist
+
+
+def hist_to_logical(backend: str, hist, n_bins: int):
+    """Backend layout -> logical (n_bins+1, 4) float32."""
+    if get_backend(backend).split:
+        return flush_mod.from_split_layout(*hist)
+    return hist
+
+
+def histogram_tiled(n_bins: int, device: torch.device | str) -> bool:
+    """Whether a histogram of n_bins bins is "tiled" on `device`: its
+    logical float32 form ((n_bins+1) x 16 bytes) exceeds the card's L2
+    cache, so a flush streams it from device memory.  This is where
+    the tune record's `*_tiled` keys apply, as the JAX package applies
+    them where its histogram leaves VMEM.  Never on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return False
+    l2 = torch.cuda.get_device_properties(device).L2_cache_size
+    return (n_bins + 1) * 16 > l2

@@ -234,11 +234,8 @@ def iterate_step(key: StructureKey, cam: CameraSpec, fuse: int, params,
     return new_state, addr, pcolor, opacity
 
 
-# packed-record flushes by backend (ops/flush.py); the others go
-# through ops/histogram.py on unpacked (addr, rgba) rows.  `atomic` is
-# the port's own: `pallas`'s unsorted flush on `pallas_win`'s 8-bit
-# records.  The JAX package has no counterpart, since a TPU has no
-# scatter-add; on the card it is the default (render.Renderer).
+# the flush of each packed backend of hist_mod.BACKENDS (ops/flush.py);
+# the others accumulate unpacked (addr, rgba) rows
 PACKED_FLUSHES = {
     "pallas": flush_mod.accumulate_packed,
     "pallas_merged": flush_mod.accumulate_merged,
@@ -246,26 +243,21 @@ PACKED_FLUSHES = {
     "pallas_rgb16": flush_mod.accumulate_windowed_rgb16,
     "atomic": flush_mod.accumulate_packed,
 }
-# the backends whose flush (accumulate_packed) the C chunk loop launches
-# itself on the card (takes_c_loop)
-C_LOOP_BACKENDS = ("pallas", "atomic")
-# the backends whose records carry at most 8 colour bits
-EIGHT_BIT = ("pallas_win", "pallas_rgb16", "atomic")
 
 
 def record_bits(key: StructureKey, cam: CameraSpec, backend: str,
                 op_bits: int = 0):
     """(color bits, total bits below the address) of the packed
     records: the opacity-extended split when op_bits, else
-    color_bits_for, capped at 8 for the windowed flushes and `atomic`
-    (flam3's native palette resolution; also keeps records
-    bit-identical to JAX's `pallas_win`)."""
+    color_bits_for, capped at the backend's `color_bits` (8 for the
+    windowed flushes and `atomic`)."""
     if op_bits:
         _ob, cbits = opacity_bits_for(cam.layout_bins, key.n_xforms)
         return cbits, op_bits + cbits
     cbits = color_bits_for(cam.layout_bins)
-    if backend in EIGHT_BIT and cbits:
-        cbits = min(cbits, 8)
+    cap = hist_mod.get_backend(backend).color_bits
+    if cap and cbits:
+        cbits = min(cbits, cap)
     return cbits, cbits
 
 
@@ -359,11 +351,10 @@ def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
     kernel argument, so a tensor here would cost a device sync per
     flush.  The plotted count stays unweighted.
 
-    `backend` is a packed-record flush of ops/flush.py (`pallas`,
-    `pallas_merged`, `pallas_win`, `atomic`, or `pallas_rgb16` on the
-    split layout of hist_alloc_for) or an ops/histogram.py backend on
-    unpacked rows (`scatter`, `scatter_sorted`, `sortcum`).  `op_bits`
-    enables the opacity-extended record.
+    `backend` names an entry of hist_mod.BACKENDS: a packed-record flush
+    of ops/flush.py (PACKED_FLUSHES; a `split` one on the layout of
+    hist_alloc_for) or an ops/histogram.py backend on unpacked rows.
+    `op_bits` enables the opacity-extended record.
 
     With `packed=False`, or where `record_bits` leaves no colour bits
     (the address takes more than 24 bits), each chunk is
@@ -374,30 +365,35 @@ def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
     counter.
 
     On the card, for the backends whose flush is the unsorted packed one
-    (C_LOOP_BACKENDS), one C call queues every chunk
+    (`c_loop`), one C call queues every chunk
     (`chaos.launch_accumulate`, a `loop` span; COUNTS["looped_chunks"]).
     Every other backend, the unpacked path and the CPU run the Python
-    loop below: each chunk a `chunk` span, its plotted count a `count`
-    span."""
+    loop (_chunk_loop)."""
+    spec = hist_mod.get_backend(backend)
     cbits, tot_bits = (record_bits(key, cam, backend, op_bits) if packed
                        else (0, 0))
-    if backend in PACKED_FLUSHES:
-        if not cbits:
-            raise ValueError("pallas backend requires packed records "
-                             "(<= 2^24 bins; see opacity_bits_for)")
+    if spec.packed and not cbits:
+        raise ValueError("pallas backend requires packed records "
+                         "(<= 2^24 bins; see opacity_bits_for)")
+
+    def scatter(hist, addrs, rgbas):
+        return spec.accumulate(
+            hist, addrs, rgbas if weight is None else rgbas * weight)
+
+    if not cbits:
+        plan = chaos.plan(key, cam, params, cdf_rows, ppu, fuse)
+
+        def full_chunk(state, hist):
+            state, addrs, rgbas = _full_records(plan, state,
+                                                iters_per_flush)
+            return state, scatter(hist, addrs, rgbas), addrs
+        return _chunk_loop(full_chunk, state, hist, n_chunks,
+                           iters_per_flush, 0, cam.junk_bin)
+    if spec.packed:
         flush = PACKED_FLUSHES[backend]
     else:
-        scatter = hist_mod.get_backend(backend)
-        if not cbits:
-            return _accumulate_unpacked(
-                key, cam, scatter, params, cdf_rows, state, hist, ppu,
-                n_chunks, iters_per_flush, fuse, weight)
-
         def flush(hist, recs, palette_hi, n_bins, bits, weight=None):
-            addrs, rgbas = unpack_records(bits, palette_hi, recs)
-            if weight is not None:
-                rgbas = rgbas * weight
-            return scatter(hist, addrs, rgbas)
+            return scatter(hist, *unpack_records(bits, palette_hi, recs))
 
     palette_hi = expand_palette(params.palette, cbits)
     if op_bits:
@@ -405,9 +401,8 @@ def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
                                             op_bits)
     plan = chaos.plan(key, cam, params, cdf_rows, ppu, fuse, cbits,
                       tot_bits, op_bits)
-    batch = state.x.shape[0]
-    recs = torch.empty((iters_per_flush, batch), dtype=torch.int64,
-                       device=state.x.device)
+    recs = torch.empty((iters_per_flush, state.x.shape[0]),
+                       dtype=torch.int64, device=state.x.device)
     if n_chunks and takes_c_loop(backend, recs.device):
         with trace.span("loop"):
             state, plotted = chaos.launch_accumulate(
@@ -415,27 +410,21 @@ def iterate_accumulate(key: StructureKey, cam: CameraSpec, backend: str,
         trace.COUNTS["looped_chunks"] += n_chunks
         _count_chunks(n_chunks, recs.numel())
         return state, hist, plotted
-    plotted = torch.zeros((), dtype=torch.float32, device=state.x.device)
-    for _ in range(n_chunks):
-        with trace.span("chunk"):
-            state = iterate_records(plan, state, recs)
-            hist = flush(hist, recs, palette_hi, cam.n_bins, tot_bits,
-                         weight)
-            # per-chunk count is exact in int64; the running total is f32
-            with trace.span("count"):
-                plotted = plotted + ((recs >> tot_bits)
-                                     != cam.junk_bin).sum() \
-                    .to(torch.float32)
-    _count_chunks(n_chunks, recs.numel())
-    return state, hist, plotted
+
+    def packed_chunk(state, hist):
+        state = iterate_records(plan, state, recs)
+        return state, flush(hist, recs, palette_hi, cam.n_bins, tot_bits,
+                            weight), recs
+    return _chunk_loop(packed_chunk, state, hist, n_chunks, iters_per_flush,
+                       tot_bits, cam.junk_bin)
 
 
 def takes_c_loop(backend: str, device) -> bool:
     """Whether iterate_accumulate queues its chunks from one C call
-    rather than its Python loop: on the card, for C_LOOP_BACKENDS.  A
-    caller that needs the Python loop, to see each chunk's records
+    rather than its Python loop: on the card, for a `c_loop` backend.
+    A caller that needs the Python loop, to see each chunk's records
     through a wrapped PACKED_FLUSHES entry, patches this to False."""
-    return backend in C_LOOP_BACKENDS and \
+    return hist_mod.get_backend(backend).c_loop and \
         torch.device(device).type == "cuda"
 
 
@@ -444,22 +433,19 @@ def _count_chunks(n_chunks: int, records_a_chunk: int) -> None:
     trace.COUNTS["records"] += n_chunks * records_a_chunk
 
 
-def _accumulate_unpacked(key, cam, scatter, params, cdf_rows, state, hist,
-                         ppu, n_chunks: int, iters_per_flush: int,
-                         fuse: int, weight):
-    """iterate_accumulate's full-record branch: per chunk,
-    iterate_chunk's records times `weight` scattered into hist."""
-    plan = chaos.plan(key, cam, params, cdf_rows, ppu, fuse)
+def _chunk_loop(chunk, state: IterState, hist, n_chunks: int,
+                iters_per_flush: int, shift: int, junk_bin: int):
+    """iterate_accumulate's Python loop: n_chunks calls of `chunk(state,
+    hist)` -> (state, hist, the chunk's records), whose addresses are
+    `records >> shift`.  Each chunk a `chunk` span and its plotted
+    count a `count` span, exact in int64; the running total is f32."""
     plotted = torch.zeros((), dtype=torch.float32, device=state.x.device)
     for _ in range(n_chunks):
         with trace.span("chunk"):
-            state, addrs, rgbas = _full_records(plan, state,
-                                                iters_per_flush)
-            if weight is not None:
-                rgbas = rgbas * weight
-            hist = scatter(hist, addrs, rgbas)
+            state, hist, recs = chunk(state, hist)
             with trace.span("count"):
-                plotted = plotted + (addrs != cam.junk_bin).sum() \
+                addrs = recs >> shift if shift else recs
+                plotted = plotted + (addrs != junk_bin).sum() \
                     .to(torch.float32)
     _count_chunks(n_chunks, iters_per_flush * state.x.shape[0])
     return state, hist, plotted
@@ -501,26 +487,3 @@ def iterate_accumulate_temporal(key: StructureKey, cam: CameraSpec,
             plotted = plotted + n
     return state, hist, plotted
 
-
-def hist_alloc_for(backend: str, n_bins: int, device):
-    """The zeroed histogram in the layout the backend accumulates into:
-    the split (density f32, rgb bf16) pair for pallas_rgb16, the
-    logical (n_bins+1, 4) float32 tensor for every other backend."""
-    if backend == "pallas_rgb16":
-        return flush_mod.alloc_split(n_bins, device)
-    return hist_mod.alloc(n_bins, device)
-
-
-def hist_to_layout(backend: str, hist):
-    """Logical (n_bins+1, 4) -> the backend's layout.  The split layout
-    rounds rgb to bf16 once."""
-    if backend == "pallas_rgb16":
-        return flush_mod.to_split_layout(hist)
-    return hist
-
-
-def hist_to_logical(backend: str, hist, n_bins: int):
-    """Backend layout -> logical (n_bins+1, 4) float32."""
-    if backend == "pallas_rgb16":
-        return flush_mod.from_split_layout(*hist)
-    return hist

@@ -52,9 +52,8 @@ import torch.distributed as dist
 
 from cuburn_tpu_torch.genome.specs import Genome
 from cuburn_tpu_torch.ops import histogram as hist_mod
-from cuburn_tpu_torch.ops.iterate import (IterState, hist_alloc_for,
-                                          hist_to_logical,
-                                          iterate_accumulate,
+from cuburn_tpu_torch.ops.histogram import hist_alloc_for, hist_to_logical
+from cuburn_tpu_torch.ops.iterate import (IterState, iterate_accumulate,
                                           iterate_accumulate_temporal)
 from cuburn_tpu_torch.params import params_from_genome
 from cuburn_tpu_torch.profile import RenderProfile

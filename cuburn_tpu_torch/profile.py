@@ -29,9 +29,9 @@ class RenderProfile:
     # scan length between histogram flushes (records per flush =
     # batch * iters_per_chunk).  0 = auto: the per-card tune record's
     # flush size (its tiled one for a histogram past L2), else 32
-    # (render.py _resolve_iters_per_chunk).
+    # (retune.backend_and_flush).
     iters_per_chunk: int = 0
-    hist_backend: str = "auto"   # auto | scatter | sortcum | pallas | pallas_merged | pallas_win | pallas_rgb16 | atomic (auto picks atomic on a GPU, scatter on the CPU)
+    hist_backend: str = "auto"   # auto, or a name of ops/histogram.py's BACKENDS (auto picks atomic on a GPU, scatter on the CPU: retune.backend_and_flush)
     de_enabled: bool = True
     transparent: bool = False
     fps: float = 24.0

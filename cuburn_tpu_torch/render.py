@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import sys
 import time
 import warnings
 from dataclasses import dataclass
@@ -40,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cuburn_tpu_torch import retune
 from cuburn_tpu_torch.device import resolve_device
 from cuburn_tpu_torch.genome.specs import Genome
 from cuburn_tpu_torch.ops import chaos
@@ -50,143 +50,17 @@ from cuburn_tpu_torch.ops.interp import pack_genome
 from cuburn_tpu_torch.ops.filtering import (colorclip, downsample,
                                             logscale,
                                             spatial_filter_taps, to_u8)
-from cuburn_tpu_torch.ops.iterate import (PACKED_FLUSHES, color_bits_for,
-                                          hist_alloc_for, hist_to_layout,
-                                          hist_to_logical, init_state,
+from cuburn_tpu_torch.ops.histogram import (hist_alloc_for, hist_to_layout,
+                                            hist_to_logical)
+from cuburn_tpu_torch.ops.iterate import (color_bits_for, init_state,
                                           iterate_accumulate,
                                           iterate_accumulate_temporal,
                                           opacity_bits_for,
                                           xform_cdf_rows)
-from cuburn_tpu_torch.ops.variations import VARIATION_IMPLS
 from cuburn_tpu_torch.params import params_from_genome
 from cuburn_tpu_torch.profile import RenderProfile
 from cuburn_tpu_torch.utils import trace
 from cuburn_tpu_torch.utils.timing import sync
-
-# every histogram backend of the JAX package, and the port's own
-# `atomic`: the packed-record flushes of ops/flush.py and the XLA
-# backends of ops/histogram.py
-BACKENDS = (*PACKED_FLUSHES, *hist_mod.BACKENDS)
-# Records per flush = batch * iters_per_chunk.  The JAX package's
-# default; retune.py's sweep on an H100 found the flush size flat within
-# the noise of the launch-bound loop (PERF.md), so it stays.
-DEFAULT_ITERS_PER_CHUNK = 32
-# the backends a tune record may choose for `auto` (retune.py races
-# these)
-TUNED_BACKENDS = ("scatter", "scatter_sorted", "pallas_win", "pallas_rgb16",
-                  "atomic")
-# where a tune record is read from when CUBURN_TUNE_FILE is unset: a
-# name of the port's own, so a record of the JAX package's tuner in the
-# same directory is never overwritten by this one's
-TUNE_FILE = "cuburn_tune_cuda.json"
-TUNE_MAX_AGE_DAYS = 30
-_TUNE_ANNOUNCED: set = set()
-_GIT_REV_CACHE: list = []
-
-
-def device_name(device: torch.device | str) -> str:
-    """The name a tune record is gated on: the card's name
-    (`torch.cuda.get_device_name`) on CUDA, "cpu" on the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        return torch.cuda.get_device_name(device)
-    return "cpu"
-
-
-def histogram_tiled(n_bins: int, device: torch.device | str) -> bool:
-    """Whether a histogram of n_bins bins is "tiled" on `device`: its
-    logical float32 form ((n_bins+1) x 16 bytes) exceeds the card's L2
-    cache, so a flush streams it from device memory.  This is where
-    the tune record's `*_tiled` keys apply, as the JAX package applies
-    them where its histogram leaves VMEM.  Never on the CPU."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return False
-    l2 = torch.cuda.get_device_properties(device).L2_cache_size
-    return (n_bins + 1) * 16 > l2
-
-
-def _current_git_rev():
-    """Short git rev of the source tree, or None outside a checkout
-    (installed package / no git binary).  Cached per process."""
-    if _GIT_REV_CACHE:
-        return _GIT_REV_CACHE[0]
-    import subprocess
-    try:
-        out = subprocess.run(
-            ["git", "rev-parse", "--short", "HEAD"],
-            capture_output=True, text=True, timeout=5,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
-        rev = out.stdout.strip() or None
-    except (OSError, subprocess.SubprocessError):
-        rev = None
-    _GIT_REV_CACHE.append(rev)
-    return rev
-
-
-def _warn_if_stale(path: str, rec: dict) -> None:
-    """One stderr line each for a record older than TUNE_MAX_AGE_DAYS
-    and for one measured at another code rev: it still applies, but the
-    kernels' economics may have moved since."""
-    import datetime
-    stamp = rec.get("timestamp")
-    if stamp:
-        try:
-            then = datetime.datetime.fromisoformat(stamp)
-        except ValueError:
-            then = None
-        if then is not None:
-            if then.tzinfo is None:
-                then = then.replace(tzinfo=datetime.timezone.utc)
-            age = (datetime.datetime.now(datetime.timezone.utc)
-                   - then).days
-            if age > TUNE_MAX_AGE_DAYS:
-                print(f"cuburn-tpu-torch: tune record {path} is {age} "
-                      f"days old (> {TUNE_MAX_AGE_DAYS}); re-run "
-                      "cuburn-tpu-torch-retune", file=sys.stderr)
-    rev, here_rev = rec.get("git_rev"), _current_git_rev()
-    if rev and here_rev and rev != here_rev:
-        print(f"cuburn-tpu-torch: tune record {path} was measured at "
-              f"code rev {rev}, this tree is {here_rev}; the kernels' "
-              "economics may have changed; re-run cuburn-tpu-torch-retune",
-              file=sys.stderr)
-
-
-def _load_tune(device: torch.device | str) -> dict:
-    """The tune record `retune.py` wrote for this device: the file
-    CUBURN_TUNE_FILE names, or ./cuburn_tune_cuda.json.  A missing or
-    malformed file gives {} (built-in defaults apply).  A record whose
-    `device` is not `device_name(device)` is skipped, with one stderr
-    line.  Applying a record says so once per path on stderr, with
-    warnings for a dated record or one of another code rev."""
-    import json
-    path = os.environ.get("CUBURN_TUNE_FILE", TUNE_FILE)
-    try:
-        with open(path) as f:
-            rec = json.load(f)
-    except (OSError, ValueError):
-        return {}
-    if not isinstance(rec, dict):
-        return {}
-    if rec.get("device"):
-        here = device_name(device)
-        if rec["device"] != here:
-            if path not in _TUNE_ANNOUNCED:
-                _TUNE_ANNOUNCED.add(path)
-                print(f"cuburn-tpu-torch: tune record {path} is for "
-                      f"device {rec['device']!r}, this is {here!r}; "
-                      "skipped (built-in defaults apply)",
-                      file=sys.stderr)
-            return {}
-    if rec and path not in _TUNE_ANNOUNCED:
-        _TUNE_ANNOUNCED.add(path)
-        keys = sorted(k for k in rec if k != "measurements")
-        print(f"cuburn-tpu-torch: applying tune record "
-              f"{os.path.abspath(path)} (keys: {', '.join(keys)}); "
-              "delete the file or unset CUBURN_TUNE_FILE for built-in "
-              "defaults", file=sys.stderr)
-        _warn_if_stale(path, rec)
-    return rec
 
 
 def _spline_range_max(sp, time_range) -> float:
@@ -483,17 +357,13 @@ class Renderer:
 
     `device` defaults to CUDA and raises when there is no GPU; the
     CPU runs only when asked for by name ("cpu").  The histogram
-    backend follows the JAX package's names (`BACKENDS`): `auto` is
-    `atomic` (the unsorted flush, a CUDA kernel, on `pallas_win`'s
-    8-bit records; the port's own, as a TPU has no scatter-add) on a
-    GPU and `scatter` on the CPU, unless a tune record for this GPU
-    (`_load_tune`, written by retune.py) picks another; the record
-    can also set the flush size.  Each `pallas*` backend launches its CUDA
-    kernel on a GPU and runs the kernel's plain version on the CPU.
-    A frame whose records do not pack into 32 bits (`packed` False)
-    accumulates full records through `scatter`, as the JAX package
-    does: `auto` is `scatter` there, and a `pallas*` or `atomic`
-    backend warns and becomes `scatter`."""
+    backend is a name of `hist_mod.BACKENDS` or `auto`, resolved with
+    the flush size by `retune.backend_and_flush`: `auto` is `atomic`
+    on a GPU and `scatter` on the CPU unless a tune record for this GPU
+    picks another.  Each `pallas*` backend launches its CUDA kernel on
+    a GPU and runs the kernel's plain version on the CPU.  A frame
+    whose records do not pack into 32 bits (`packed` False) accumulates
+    full records through `scatter`, as the JAX package does."""
 
     def __init__(self, genome: Genome, profile: RenderProfile,
                  device: torch.device | str | None = None):
@@ -502,13 +372,6 @@ class Renderer:
         self._packed_genome = None      # built at the first blurred frame
         self.profile = profile
         self.key = genome.structure_key()
-        used = set(self.key.variations) | set(
-            self.key.final_variations or ())
-        missing = sorted(used - set(VARIATION_IMPLS))
-        if missing:
-            raise NotImplementedError(
-                f"variations not ported yet: {', '.join(missing)} "
-                "(ROADMAP.md queue A)")
         if self.device.type == "cuda":
             # the key's chaos kernel: its build stays out of iterate_s
             chaos.load(self.key)
@@ -545,62 +408,9 @@ class Renderer:
                                       len(genome.xforms))
             self.packed = cb > 0
             self.op_bits = ob
-        backend = profile.hist_backend
-        tune = _load_tune(self.device)
-        if backend == "auto":
-            # a tune record's choice, per geometry (hist_backend_tiled
-            # where the histogram is past L2), on a GPU only; else the
-            # unsorted flush on a GPU and scatter on the CPU
-            tiled = histogram_tiled(self.cam.n_bins, self.device)
-            choice = ((tune.get("hist_backend_tiled") if tiled else None)
-                      or tune.get("hist_backend"))
-            if choice in TUNED_BACKENDS and self.device.type == "cuda":
-                backend = choice
-                if backend in PACKED_FLUSHES and not self.packed:
-                    backend = "scatter"
-            else:
-                backend = ("atomic"
-                           if self.device.type == "cuda" and self.packed
-                           else "scatter")
-        elif backend not in BACKENDS:
-            raise ValueError(f"unknown histogram backend {backend!r}; "
-                             f"have {sorted(BACKENDS)}")
-        if backend in PACKED_FLUSHES and not self.packed:
-            warnings.warn(
-                "pallas histogram backend needs packed records (the "
-                "addr+xform+color coordinate must fit 32 bits); "
-                "using scatter")
-            backend = "scatter"
-        self.backend = backend
-        self.profile = dataclasses.replace(
-            profile, iters_per_chunk=self._resolve_iters_per_chunk(
-                profile, tune))
-
-    def _resolve_iters_per_chunk(self, profile, tune: dict) -> int:
-        """Records per flush = batch * iters_per_chunk.  The
-        CUBURN_ITERS_PER_CHUNK env var (0 = auto), then the profile
-        field (0 = auto), then the tune record's `flush_records`
-        divided by the profile's batch, its legacy `iters_per_chunk`,
-        and DEFAULT_ITERS_PER_CHUNK.  A record's `tiled_flush_records`
-        raises that for a tiled histogram (`histogram_tiled`) under
-        pallas_win or pallas_rgb16; without a record nothing is
-        raised."""
-        env = os.environ.get("CUBURN_ITERS_PER_CHUNK")
-        if env and int(env) > 0:
-            return int(env)
-        if profile.iters_per_chunk > 0:
-            return profile.iters_per_chunk
-        if tune.get("flush_records"):
-            base = max(1, int(tune["flush_records"]) // profile.batch)
-        else:
-            base = int(tune.get("iters_per_chunk")
-                       or DEFAULT_ITERS_PER_CHUNK)
-        tiled_records = tune.get("tiled_flush_records")
-        if (tiled_records
-                and self.backend in ("pallas_win", "pallas_rgb16")
-                and histogram_tiled(self.cam.n_bins, self.device)):
-            return max(base, int(tiled_records) // profile.batch)
-        return base
+        self.backend, iters = retune.backend_and_flush(
+            profile, self.device, self.packed, self.cam.n_bins)
+        self.profile = dataclasses.replace(profile, iters_per_chunk=iters)
 
     # -- frame rendering -------------------------------------------------
 

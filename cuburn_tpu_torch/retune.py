@@ -8,7 +8,7 @@ The port's counterpart of `cuburn_tpu/retune.py`:
      tiled)
      in-loop, chained, at two histogram sizes: 512x512, and
      `TILED_DIMS`, the main path's 1080p-ss2 accumulator, whose
-     histogram is past the card's L2 cache (render.histogram_tiled)
+     histogram is past the card's L2 cache (histogram.histogram_tiled)
   3. sweeps the flush size K (records per flush = B*K) at 512x512
      through the default backend
      3b. and at the tiled size through pallas_win (the record's
@@ -29,10 +29,11 @@ a backend pick that stood in one run did not stand in the next three
 runs before keeping one.
 
 The record goes where `Renderer` reads it on the same card
-(render._load_tune): the file CUBURN_TUNE_FILE names, or
+(`_load_tune`): the file CUBURN_TUNE_FILE names, or
 ./cuburn_tune_cuda.json.  Delete the file for the built-in defaults.
 The record is gated on the card's name (`torch.cuda.get_device_name`),
-so a record for another device is skipped.
+so a record for another device is skipped.  A Renderer applies it
+through `backend_and_flush`, the rule for its backend and flush size.
 
 The JAX tuner's sections 2, 2b and 2c race the segmented sub-sort
 (`sort_segments`) and the sort implementation (`sort_impl`); the port
@@ -52,11 +53,16 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import functools
 import json
 import os
+import subprocess
 import sys
+import warnings
 
 import torch
+
+from cuburn_tpu_torch.ops import histogram as hist_mod
 
 # the two histogram sizes of the backend race and the flush-size
 # sweeps (width, height at ss 1): one well inside the card's L2 cache,
@@ -64,24 +70,182 @@ import torch
 # (8.63 M bins, 138 MB), which is past it
 UNTILED_DIMS = (512, 512)
 TILED_DIMS = (3896, 2216)
-CANDIDATES = ("scatter", "scatter_sorted", "pallas_win", "atomic")
-TILED_CANDIDATES = CANDIDATES + ("pallas_rgb16",)
+# the backends a record may pick for `auto`, raced at both sizes in
+# the f32 layout and at the tiled size in the split one too (halving
+# the rgb bytes a flush moves only pays where the histogram is past L2)
+_TUNED = [(n, b) for n, b in hist_mod.BACKENDS.items() if b.tunable]
+CANDIDATES = tuple(n for n, b in _TUNED if not b.split)
+TILED_CANDIDATES = CANDIDATES + tuple(n for n, b in _TUNED if b.split)
 RGB16_PROMOTE_MARGIN = 1.05
-# what `auto` takes on the card without a record: the reference a pick
-# must stand out from
+# `auto` on the card without a record (the reference a pick must stand
+# out from); `auto` on the CPU, and any backend where records do not pack
 DEFAULT_BACKEND = "atomic"
+UNPACKED_BACKEND = "scatter"
 PASSES = 2
+# Records per flush = batch * iters_per_chunk.  The JAX package's
+# default; the sweep below on an H100 found the flush size flat within
+# the noise of the launch-bound loop (PERF.md), so it stays.
+DEFAULT_ITERS_PER_CHUNK = 32
+# where a tune record is read from when CUBURN_TUNE_FILE is unset: a
+# name of the port's own, so a record of the JAX package's tuner in the
+# same directory is never overwritten by this one's
+TUNE_FILE = "cuburn_tune_cuda.json"
+TUNE_MAX_AGE_DAYS = 30
+_TUNE_ANNOUNCED: set = set()
+
+
+def device_name(device: torch.device | str) -> str:
+    """The name a tune record is gated on: the card's name
+    (`torch.cuda.get_device_name`) on CUDA, "cpu" on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return "cpu"
+
+
+@functools.cache
+def _current_git_rev():
+    """Short git rev of the source tree, or None outside a checkout
+    (installed package / no git binary).  Cached per process."""
+    try:
+        out = subprocess.run(
+            ["git", "rev-parse", "--short", "HEAD"],
+            capture_output=True, text=True, timeout=5,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.stdout.strip() or None
+
+
+def _warn_if_stale(path: str, rec: dict) -> None:
+    """One stderr line each for a record older than TUNE_MAX_AGE_DAYS
+    and for one measured at another code rev: it still applies, but the
+    kernels' economics may have moved since."""
+    stamp = rec.get("timestamp")
+    if stamp:
+        try:
+            then = datetime.datetime.fromisoformat(stamp)
+        except ValueError:
+            then = None
+        if then is not None:
+            if then.tzinfo is None:
+                then = then.replace(tzinfo=datetime.timezone.utc)
+            age = (datetime.datetime.now(datetime.timezone.utc)
+                   - then).days
+            if age > TUNE_MAX_AGE_DAYS:
+                print(f"cuburn-tpu-torch: tune record {path} is {age} "
+                      f"days old (> {TUNE_MAX_AGE_DAYS}); re-run "
+                      "cuburn-tpu-torch-retune", file=sys.stderr)
+    rev, here_rev = rec.get("git_rev"), _current_git_rev()
+    if rev and here_rev and rev != here_rev:
+        print(f"cuburn-tpu-torch: tune record {path} was measured at "
+              f"code rev {rev}, this tree is {here_rev}; the kernels' "
+              "economics may have changed; re-run cuburn-tpu-torch-retune",
+              file=sys.stderr)
+
+
+def _load_tune(device: torch.device | str) -> dict:
+    """The tune record this tool wrote for this device: the file
+    CUBURN_TUNE_FILE names, or ./cuburn_tune_cuda.json.  A missing or
+    malformed file gives {} (built-in defaults apply).  A record whose
+    `device` is not `device_name(device)` is skipped, with one stderr
+    line.  Applying a record says so once per path on stderr, with
+    warnings for a dated record or one of another code rev."""
+    path = os.environ.get("CUBURN_TUNE_FILE", TUNE_FILE)
+    try:
+        with open(path) as f:
+            rec = json.load(f)
+    except (OSError, ValueError):
+        return {}
+    if not isinstance(rec, dict):
+        return {}
+    if rec.get("device"):
+        here = device_name(device)
+        if rec["device"] != here:
+            if path not in _TUNE_ANNOUNCED:
+                _TUNE_ANNOUNCED.add(path)
+                print(f"cuburn-tpu-torch: tune record {path} is for "
+                      f"device {rec['device']!r}, this is {here!r}; "
+                      "skipped (built-in defaults apply)",
+                      file=sys.stderr)
+            return {}
+    if rec and path not in _TUNE_ANNOUNCED:
+        _TUNE_ANNOUNCED.add(path)
+        keys = sorted(k for k in rec if k != "measurements")
+        print(f"cuburn-tpu-torch: applying tune record "
+              f"{os.path.abspath(path)} (keys: {', '.join(keys)}); "
+              "delete the file or unset CUBURN_TUNE_FILE for built-in "
+              "defaults", file=sys.stderr)
+        _warn_if_stale(path, rec)
+    return rec
+
+
+def backend_and_flush(profile, device: torch.device | str, packed: bool,
+                      n_bins: int, tune: dict | None = None):
+    """(histogram backend, iters_per_chunk) for a Renderer of `profile`
+    on `device`, its records packed into 32 bits or not, its histogram
+    n_bins bins; `tune` is the record (`_load_tune(device)` where None).
+
+    `auto` takes the record's pick on a GPU (`hist_backend_tiled` where
+    the histogram is tiled, else `hist_backend`), else DEFAULT_BACKEND
+    on a GPU and UNPACKED_BACKEND on the CPU.  Where the records do not
+    pack, a packed-record flush becomes UNPACKED_BACKEND, with a warning
+    where the profile named it.
+
+    Records per flush = batch * iters_per_chunk: the
+    CUBURN_ITERS_PER_CHUNK env var (0 = auto), then the profile field
+    (0 = auto), then the record's `flush_records` divided by the
+    profile's batch, its legacy `iters_per_chunk`, and
+    DEFAULT_ITERS_PER_CHUNK; a record's `tiled_flush_records` raises
+    that for a `tiled_flush` backend where the histogram is tiled."""
+    device = torch.device(device)
+    if tune is None:
+        tune = _load_tune(device)
+    tiled = hist_mod.histogram_tiled(n_bins, device)
+    requested = profile.hist_backend
+    if requested == "auto":
+        choice = ((tune.get("hist_backend_tiled") if tiled else None)
+                  or tune.get("hist_backend"))
+        if device.type != "cuda":
+            backend = UNPACKED_BACKEND
+        elif choice in TILED_CANDIDATES:
+            backend = choice
+        else:
+            backend = DEFAULT_BACKEND
+    else:
+        hist_mod.get_backend(requested)     # refuses an unknown name
+        backend = requested
+    if hist_mod.BACKENDS[backend].packed and not packed:
+        if requested != "auto":
+            warnings.warn(
+                "pallas histogram backend needs packed records (the "
+                "addr+xform+color coordinate must fit 32 bits); "
+                f"using {UNPACKED_BACKEND}")
+        backend = UNPACKED_BACKEND
+
+    env = os.environ.get("CUBURN_ITERS_PER_CHUNK")
+    if env and int(env) > 0:
+        return backend, int(env)
+    if profile.iters_per_chunk > 0:
+        return backend, profile.iters_per_chunk
+    if tune.get("flush_records"):
+        iters = max(1, int(tune["flush_records"]) // profile.batch)
+    else:
+        iters = int(tune.get("iters_per_chunk") or DEFAULT_ITERS_PER_CHUNK)
+    tiled_records = tune.get("tiled_flush_records")
+    if tiled_records and tiled and hist_mod.BACKENDS[backend].tiled_flush:
+        iters = max(iters, int(tiled_records) // profile.batch)
+    return backend, iters
 
 
 def race(key, cam, params, cdf, ppu, backend, B, K, n_chunks, iters=1):
     """Chained in-loop measurement through utils.timing.time_fn: one
     warm-up call, then `iters` timed calls, each starting from the
     trajectories the previous one left.  Returns M iters/s."""
-    from cuburn_tpu_torch.ops.iterate import (hist_alloc_for, init_state,
-                                              iterate_accumulate)
+    from cuburn_tpu_torch.ops.iterate import init_state, iterate_accumulate
     from cuburn_tpu_torch.utils.timing import time_fn
     device = cdf.device
-    hist = hist_alloc_for(backend, cam.n_bins, device)
+    hist = hist_mod.hist_alloc_for(backend, cam.n_bins, device)
     state = init_state(torch.Generator().manual_seed(0), B, device)
 
     def fn(st):
@@ -122,9 +286,8 @@ def stands_out(m: dict, row: str, ref: str, spread: float) -> bool:
 
 
 def stamp(tune: dict) -> dict:
-    """Timestamp and code-rev stamp: render._load_tune warns when it
-    applies a dated record or one measured at another rev."""
-    from cuburn_tpu_torch.render import _current_git_rev
+    """Timestamp and code-rev stamp: _load_tune warns when it applies a
+    dated record or one measured at another rev."""
     tune["timestamp"] = datetime.datetime.now(
         datetime.timezone.utc).isoformat(timespec="seconds")
     rev = _current_git_rev()
@@ -134,7 +297,6 @@ def stamp(tune: dict) -> dict:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from cuburn_tpu_torch.render import TUNE_FILE
     ap = argparse.ArgumentParser(
         prog="cuburn-tpu-torch-retune",
         description="race the histogram backends and flush sizes on "
@@ -160,7 +322,6 @@ def main(argv=None) -> int:
     from cuburn_tpu_torch.ops.camera import CameraSpec
     from cuburn_tpu_torch.ops.iterate import xform_cdf_rows
     from cuburn_tpu_torch.params import params_from_genome
-    from cuburn_tpu_torch.render import DEFAULT_ITERS_PER_CHUNK, device_name
 
     try:
         device = resolve_device("cpu" if args.cpu else "cuda")
@@ -209,11 +370,14 @@ def main(argv=None) -> int:
     # memory (then the sweep stops escalating).  Each list holds the
     # built-in flush size, the reference a pick must stand out from.
     k_ref = DEFAULT_ITERS_PER_CHUNK
+    # the f32 backend whose flush size `tiled_flush_records` sets
+    tiled_sweep = next(n for n in CANDIDATES
+                       if hist_mod.BACKENDS[n].tiled_flush)
     k_list = (32, 64) if args.quick else (16, 32, 64, 128, 256)
     k_tiled = (32, 256) if args.quick else (32, 64, 128, 256, 512)
     rows += [(f"K={k}", UNTILED_DIMS, DEFAULT_BACKEND, k,
               max(1, n_chunks * 64 // k)) for k in k_list]
-    rows += [(f"K_tiled={k}", TILED_DIMS, "pallas_win", k,
+    rows += [(f"K_tiled={k}", TILED_DIMS, tiled_sweep, k,
               max(1, n_chunks * 64 // k)) for k in k_tiled]
 
     passes: dict = {}

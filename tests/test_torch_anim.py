@@ -42,6 +42,7 @@ from cuburn_tpu_torch import render as trender  # noqa: E402
 from cuburn_tpu_torch.genome.convert import genome_to_flame_xml  # noqa: E402
 from cuburn_tpu_torch.genome.specs import GenomeParams  # noqa: E402
 from cuburn_tpu_torch.models import get_genome  # noqa: E402
+from cuburn_tpu_torch.ops import histogram as thist  # noqa: E402
 from cuburn_tpu_torch.ops import interp as tinterp  # noqa: E402
 from cuburn_tpu_torch.ops import iterate as tit  # noqa: E402
 from cuburn_tpu_torch.ops.camera import CameraSpec  # noqa: E402
@@ -248,15 +249,15 @@ def _accumulate_args(backend, name="animated_spark", batch=1024, seed=3):
     ppu_T = params_T.ppu * float(np.float32(64 / g.size[0]))
     state = tit.init_state(torch.Generator().manual_seed(seed), batch,
                            "cpu")
-    hist = tit.hist_alloc_for(backend, cam.n_bins, "cpu")
+    hist = thist.hist_alloc_for(backend, cam.n_bins, "cpu")
     return key, cam, params_T, ppu_T, state, hist
 
 
 def _logical(backend, hist, cam):
-    return tit.hist_to_logical(backend, hist, cam.n_bins).numpy()
+    return thist.hist_to_logical(backend, hist, cam.n_bins).numpy()
 
 
-@pytest.mark.parametrize("backend", trender.BACKENDS)
+@pytest.mark.parametrize("backend", thist.BACKENDS)
 def test_one_sample_weight_one_is_the_plain_path(backend):
     key, cam, params_T, ppu_T, state, hist = _accumulate_args(backend)
     s1, h1, n1 = tit.iterate_accumulate_temporal(
@@ -267,7 +268,7 @@ def test_one_sample_weight_one_is_the_plain_path(backend):
     params = tinterp.sample_params(params_T, 0)
     s2, h2, n2 = tit.iterate_accumulate(
         key, cam, backend, params, tit.xform_cdf_rows(params), state,
-        tit.hist_alloc_for(backend, cam.n_bins, "cpu"), ppu_T[0], 2, 4, 8)
+        thist.hist_alloc_for(backend, cam.n_bins, "cpu"), ppu_T[0], 2, 4, 8)
     np.testing.assert_array_equal(_logical(backend, h1, cam),
                                   _logical(backend, h2, cam))
     assert float(n1) == float(n2) > 0
@@ -276,12 +277,12 @@ def test_one_sample_weight_one_is_the_plain_path(backend):
     # no weights at all is weight 1.0
     _s, h3, n3 = tit.iterate_accumulate_temporal(
         key, cam, backend, params_T, state,
-        tit.hist_alloc_for(backend, cam.n_bins, "cpu"), ppu_T, 2, 4, 8)
+        thist.hist_alloc_for(backend, cam.n_bins, "cpu"), ppu_T, 2, 4, 8)
     np.testing.assert_array_equal(_logical(backend, h1, cam),
                                   _logical(backend, h3, cam))
 
 
-@pytest.mark.parametrize("backend", trender.BACKENDS)
+@pytest.mark.parametrize("backend", thist.BACKENDS)
 def test_weight_scales_mass_and_not_counts(backend):
     out = {}
     for w in (1.0, 0.25):
@@ -320,7 +321,7 @@ def test_temporal_mass_is_the_weighted_plotted_count(backend, monkeypatch):
     weights = [0.011, 0.325, 1.0]
     _s, hist, n = tit.iterate_accumulate_temporal(
         key, cam, backend, params_T, state,
-        tit.hist_alloc_for(backend, cam.n_bins, "cpu"), ppu_T, 2, 8, 8,
+        thist.hist_alloc_for(backend, cam.n_bins, "cpu"), ppu_T, 2, 8, 8,
         weights_T=weights)
     assert [w for w, _ in per_sample] == weights
     assert float(n) == sum(c for _, c in per_sample)

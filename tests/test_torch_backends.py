@@ -135,7 +135,8 @@ def test_xla_backend_matches_jax(name):
     j = np.asarray(jhist.get_backend(name)(
         jnp.asarray(start), jnp.asarray(addr), jnp.asarray(rgba)))
     h = torch.as_tensor(start.copy())
-    t = thist.get_backend(name)(h, _i64(addr), torch.as_tensor(rgba))
+    t = thist.get_backend(name).accumulate(h, _i64(addr),
+                                           torch.as_tensor(rgba))
     assert t is h                                       # in place
     if name == "scatter_sorted":
         np.testing.assert_array_equal(t.numpy(), j)
@@ -285,9 +286,9 @@ def test_split_layout_round_trip():
     j = ph.from_split_layout(*ph.to_split_layout(jnp.asarray(h.numpy())),
                              N_BINS)
     np.testing.assert_array_equal(back.numpy(), np.asarray(j))
-    assert tit.hist_to_logical("pallas_rgb16", tit.hist_to_layout(
+    assert thist.hist_to_logical("pallas_rgb16", thist.hist_to_layout(
         "pallas_rgb16", h), N_BINS).shape == h.shape
-    d0, r0 = tit.hist_alloc_for("pallas_rgb16", N_BINS, "cpu")
+    d0, r0 = thist.hist_alloc_for("pallas_rgb16", N_BINS, "cpu")
     assert d0.shape == (N_BINS + 1,) and r0.shape == (N_BINS + 1, 3)
 
 
@@ -759,8 +760,43 @@ def test_cli_passes_backend_through(backend, tmp_path, capsys):
     assert f"[{backend} on cpu]" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("backend", [*sorted(tit.PACKED_FLUSHES),
-                                     *thist.BACKENDS])
+# each backend's facts as the name tuples the table replaced held them:
+# (packed, colour-bit cap, split layout, C loop, tunable, tiled flush)
+BACKEND_FACTS = {
+    "scatter": (False, None, False, False, True, False),
+    "scatter_sorted": (False, None, False, False, True, False),
+    "sortcum": (False, None, False, False, False, False),
+    "pallas": (True, None, False, True, False, False),
+    "pallas_merged": (True, None, False, False, False, False),
+    "pallas_win": (True, 8, False, False, True, True),
+    "pallas_rgb16": (True, 8, True, False, True, True),
+    "atomic": (True, 8, False, True, True, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BACKEND_FACTS))
+def test_backend_table_holds_each_backends_facts(name):
+    """The table's record of each of the eight backends; a packed one
+    has a flush in PACKED_FLUSHES, an unpacked one its accumulate."""
+    assert set(thist.BACKENDS) == set(BACKEND_FACTS)
+    b = thist.BACKENDS[name]
+    assert (b.packed, b.color_bits, b.split, b.c_loop, b.tunable,
+            b.tiled_flush) == BACKEND_FACTS[name]
+    assert (name in tit.PACKED_FLUSHES) == b.packed
+    assert b.packed or b.accumulate is getattr(
+        thist, f"accumulate_{name}")
+    assert thist.get_backend(name) is b
+    with pytest.raises(ValueError, match="unknown histogram backend"):
+        thist.get_backend(name + "_x")
+
+
+def test_cli_backend_choices_are_auto_and_the_table():
+    action = next(a for a in tmain.build_parser()._actions
+                  if a.dest == "hist_backend")
+    assert tuple(action.choices) == ("auto", *thist.BACKENDS)
+
+
+@pytest.mark.parametrize("backend", thist.BACKENDS)
 def test_c_loop_only_for_the_unsorted_packed_flush_on_the_card(backend):
     """The loop follows the backend's name and the device alone."""
     c_loop = backend in ("atomic", "pallas")

@@ -252,7 +252,7 @@ TILED_ARGV = ["--cpu", "--width", "64", "--height", "48", "--ipc", "24",
 
 
 def test_tileddiff_density_exact(monkeypatch):
-    monkeypatch.setattr(tileddiff.render, "histogram_tiled",
+    monkeypatch.setattr(tileddiff.hist_mod, "histogram_tiled",
                         lambda n_bins, device: True)
     rc, lines = _run(tileddiff.main, TILED_ARGV)
     assert rc == 0

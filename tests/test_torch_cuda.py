@@ -51,6 +51,7 @@ import json  # noqa: E402
 
 from cuburn_tpu_torch import params as tparams  # noqa: E402
 from cuburn_tpu_torch import render as trender  # noqa: E402
+from cuburn_tpu_torch import retune as tretune  # noqa: E402
 from cuburn_tpu_torch.genome.spline import Spline  # noqa: E402
 from cuburn_tpu_torch.genome.variations import VARIATION_PARAMS  # noqa: E402
 from cuburn_tpu_torch.kernels import build  # noqa: E402
@@ -722,7 +723,7 @@ def test_default_still_flushes_unsorted(cuda, default_still):
     every bin."""
     a, w = default_still["auto"], default_still["pallas_win"]
     assert a["renderer"].backend == "atomic"
-    assert trender.histogram_tiled(a["renderer"].cam.n_bins, cuda)
+    assert thist.histogram_tiled(a["renderer"].cam.n_bins, cuda)
     chunks = a["launches"]["chaos_iterate"]
     assert chunks == len(a["records"]) == a["looped"] > 1
     assert a["launches"] == {"win_flush": 0, "packed_flush": chunks,
@@ -1017,7 +1018,7 @@ def test_tune_record_for_this_card_steers_auto(cuda, tmp_path, monkeypatch):
     import os
 
     from cuburn_tpu_torch.profile import get_profile
-    monkeypatch.setattr(trender, "_TUNE_ANNOUNCED", set())
+    monkeypatch.setattr(tretune, "_TUNE_ANNOUNCED", set())
     monkeypatch.delenv("CUBURN_ITERS_PER_CHUNK", raising=False)
     rec = {"device": torch.cuda.get_device_name(cuda),
            "hist_backend": "scatter_sorted",
@@ -1032,7 +1033,7 @@ def test_tune_record_for_this_card_steers_auto(cuda, tmp_path, monkeypatch):
     assert r.profile.iters_per_chunk == (1 << 21) // 1024
     big = get_profile("1080p")
     r = trender.Renderer(full_feature(), big)
-    assert trender.histogram_tiled(r.cam.n_bins, r.device)
+    assert thist.histogram_tiled(r.cam.n_bins, r.device)
     assert r.backend == "pallas_rgb16"
     assert r.profile.iters_per_chunk == (1 << 23) // big.batch
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -1040,7 +1041,7 @@ def test_tune_record_for_this_card_steers_auto(cuda, tmp_path, monkeypatch):
                        os.path.join(repo, "cuburn_tune.json"))
     r = trender.Renderer(full_feature(), big)
     assert r.backend == "atomic"
-    assert r.profile.iters_per_chunk == trender.DEFAULT_ITERS_PER_CHUNK
+    assert r.profile.iters_per_chunk == tretune.DEFAULT_ITERS_PER_CHUNK
 
 
 def test_native_encoder_in_use(cuda):

@@ -144,6 +144,17 @@ def test_genome_from_jax_round_trips(name):
     assert t.to_json() == j.to_json()
 
 
+def test_genome_refuses_an_unknown_variation():
+    """An xform names only variations the chaos game implements: the
+    genome layer refuses any other name, so no Renderer meets one."""
+    from cuburn_tpu_torch.genome.specs import XForm
+    from cuburn_tpu_torch.genome.variations import VARIATION_PARAMS
+    from cuburn_tpu_torch.ops.variations import VARIATION_IMPLS
+    assert set(VARIATION_PARAMS) == set(VARIATION_IMPLS)
+    with pytest.raises(ValueError, match="unknown variation 'nosuch'"):
+        XForm(vars={"linear": 1.0, "nosuch": 0.5})
+
+
 def test_flam3_file_parses_as_in_jax():
     js = jconvert.load_genomes(str(SHEEP))
     ts = tconvert.load_genomes(str(SHEEP))

@@ -35,6 +35,8 @@ from cuburn_tpu.profile import RenderProfile  # noqa: E402
 from cuburn_tpu_torch import device as tdevice  # noqa: E402
 from cuburn_tpu_torch import params as tparams  # noqa: E402
 from cuburn_tpu_torch import render as trender  # noqa: E402
+from cuburn_tpu_torch import retune as tretune  # noqa: E402
+from cuburn_tpu_torch.ops import histogram as thist  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -233,14 +235,14 @@ def test_cli_refuses_resume_with_stripes(tmp_path):
 
 
 def test_renderer_backend_choice():
-    """Every backend of the JAX package is accepted by name; `auto` is
-    scatter on the CPU; unknown names are refused; a profile with
-    motion blur builds."""
+    """Every backend of the table (the JAX package's and `atomic`) is
+    accepted by name; `auto` is scatter on the CPU; unknown names are
+    refused; a profile with motion blur builds."""
     g = sierpinski()
     prof = RenderProfile(width=32, height=32, quality=5, batch=1024)
     assert trender.Renderer(g, prof, device="cpu").backend == "scatter"
-    for name in ("scatter", "pallas", "pallas_merged", "pallas_win",
-                 "pallas_rgb16", "sortcum", "scatter_sorted"):
+    assert len(thist.BACKENDS) == 8
+    for name in thist.BACKENDS:
         assert trender.Renderer(g, RenderProfile(
             **{**prof.__dict__, "hist_backend": name}),
             device="cpu").backend == name
@@ -252,7 +254,7 @@ def test_renderer_backend_choice():
         **{**prof.__dict__, "temporal_samples": 4}), device="cpu")
     assert len(blurred._temporal_times(0.0)[0]) == 4
     r = trender.Renderer(g, prof, device="cpu")
-    assert r.profile.iters_per_chunk == trender.DEFAULT_ITERS_PER_CHUNK
+    assert r.profile.iters_per_chunk == tretune.DEFAULT_ITERS_PER_CHUNK
 
 
 def test_no_silent_cpu_fallback():

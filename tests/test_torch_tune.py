@@ -4,12 +4,13 @@ record, and `utils.timing.time_fn`, against the JAX package's.
 Contracts:
 - `pick_tiled_backend` picks as `cuburn_tpu.retune.pick_tiled_backend`
   on the JAX tests' synthetic race records;
-- `_load_tune` gives {} for a missing or malformed file, skips a record
+- `retune._load_tune` gives {} for a missing or malformed file, skips a record
   for another device (the repo's TPU record on the CPU) with one stderr
   line, applies a "cpu" record on the CPU, and warns once a path about
   a dated record or one of another code rev;
-- `_resolve_iters_per_chunk` equals the JAX package's on the same
-  records and profiles where the histogram is not tiled; a tiled
+- `retune.backend_and_flush`'s flush size equals the JAX package's
+  `_resolve_iters_per_chunk` on the same records and profiles where
+  the histogram is not tiled; a tiled
   histogram (past the card's L2, monkeypatched here) takes the record's
   `tiled_flush_records` under pallas_win/pallas_rgb16, and without a
   record nothing changes (32);
@@ -37,6 +38,7 @@ from cuburn_tpu.models import sierpinski as jsierpinski  # noqa: E402
 from cuburn_tpu.profile import RenderProfile as JProfile  # noqa: E402
 from cuburn_tpu_torch import render as trender  # noqa: E402
 from cuburn_tpu_torch import retune as tretune  # noqa: E402
+from cuburn_tpu_torch.ops import histogram as thist  # noqa: E402
 from cuburn_tpu_torch.models import sierpinski  # noqa: E402
 from cuburn_tpu_torch.profile import RenderProfile  # noqa: E402
 from cuburn_tpu_torch.utils.timing import time_fn  # noqa: E402
@@ -71,8 +73,8 @@ def _no_tune_record(tmp_path_factory):
 @pytest.fixture
 def fresh_tune(monkeypatch):
     """No announcement made yet in this process, and a fixed code rev."""
-    monkeypatch.setattr(trender, "_TUNE_ANNOUNCED", set())
-    monkeypatch.setattr(trender, "_current_git_rev", lambda: "abc1234")
+    monkeypatch.setattr(tretune, "_TUNE_ANNOUNCED", set())
+    monkeypatch.setattr(tretune, "_current_git_rev", lambda: "abc1234")
     monkeypatch.delenv("CUBURN_ITERS_PER_CHUNK", raising=False)
 
 
@@ -98,9 +100,9 @@ def test_pick_tiled_backend_matches_jax(case):
 def test_load_tune_malformed_gives_nothing(text, tmp_path, monkeypatch,
                                            fresh_tune, capsys):
     _write(tmp_path, monkeypatch, text)
-    assert trender._load_tune("cpu") == {}
+    assert tretune._load_tune("cpu") == {}
     monkeypatch.setenv("CUBURN_TUNE_FILE", str(tmp_path / "missing.json"))
-    assert trender._load_tune("cpu") == {}
+    assert tretune._load_tune("cpu") == {}
     assert capsys.readouterr().err == ""
 
 
@@ -109,17 +111,17 @@ def test_load_tune_skips_the_repos_tpu_record(monkeypatch, fresh_tune,
     rec = json.loads((REPO / "cuburn_tune.json").read_text())
     assert rec["device"] != "cpu"
     monkeypatch.setenv("CUBURN_TUNE_FILE", str(REPO / "cuburn_tune.json"))
-    assert trender._load_tune("cpu") == {}
+    assert tretune._load_tune("cpu") == {}
     err = capsys.readouterr().err
     assert "skipped" in err and rec["device"] in err
     # said once a path
-    assert trender._load_tune("cpu") == {}
+    assert tretune._load_tune("cpu") == {}
     assert capsys.readouterr().err == ""
     r = trender.Renderer(sierpinski(), RenderProfile(**SMALL,
                                                      iters_per_chunk=0),
                          device="cpu")
     assert r.backend == "scatter"
-    assert r.profile.iters_per_chunk == trender.DEFAULT_ITERS_PER_CHUNK
+    assert r.profile.iters_per_chunk == tretune.DEFAULT_ITERS_PER_CHUNK
 
 
 def test_default_tune_file_is_the_ports_own(tmp_path, monkeypatch,
@@ -130,10 +132,10 @@ def test_default_tune_file_is_the_ports_own(tmp_path, monkeypatch,
     monkeypatch.chdir(tmp_path)
     (tmp_path / "cuburn_tune.json").write_text(json.dumps(
         {"device": "cpu", "flush_records": 1 << 20}))
-    assert trender._load_tune("cpu") == {}
+    assert tretune._load_tune("cpu") == {}
     rec = {"device": "cpu", "flush_records": 1024 * 48}
-    (tmp_path / trender.TUNE_FILE).write_text(json.dumps(rec))
-    assert trender._load_tune("cpu") == rec
+    (tmp_path / tretune.TUNE_FILE).write_text(json.dumps(rec))
+    assert tretune._load_tune("cpu") == rec
 
 
 def test_cpu_record_applies_and_auto_stays_scatter(tmp_path, monkeypatch,
@@ -148,16 +150,16 @@ def test_cpu_record_applies_and_auto_stays_scatter(tmp_path, monkeypatch,
     assert r.profile.iters_per_chunk == 48
     assert r.backend == "scatter"           # a record steers auto on a GPU
     # the tiled key does not reach the CPU either
-    monkeypatch.setattr(trender, "histogram_tiled", lambda n, d: True)
+    monkeypatch.setattr(thist, "histogram_tiled", lambda n, d: True)
     assert trender.Renderer(sierpinski(), RenderProfile(**SMALL),
                             device="cpu").backend == "scatter"
     # a record for another device is not applied
     path.write_text(json.dumps(dict(rec, device="NVIDIA H100 80GB HBM3")))
-    monkeypatch.setattr(trender, "_TUNE_ANNOUNCED", set())
+    monkeypatch.setattr(tretune, "_TUNE_ANNOUNCED", set())
     r = trender.Renderer(sierpinski(), RenderProfile(**SMALL,
                                                      iters_per_chunk=0),
                          device="cpu")
-    assert r.profile.iters_per_chunk == trender.DEFAULT_ITERS_PER_CHUNK
+    assert r.profile.iters_per_chunk == tretune.DEFAULT_ITERS_PER_CHUNK
     assert "skipped" in capsys.readouterr().err
 
 
@@ -167,9 +169,9 @@ def test_cpu_record_naming_atomic_leaves_auto_scatter(key, tmp_path,
                                                       fresh_tune, capsys):
     """`atomic`, the card's default, is a backend a record may name; on
     the CPU `auto` stays `scatter` under it, as under any record."""
-    assert "atomic" in trender.TUNED_BACKENDS
+    assert thist.BACKENDS["atomic"].tunable
     _write(tmp_path, monkeypatch, {"device": "cpu", key: "atomic"})
-    monkeypatch.setattr(trender, "histogram_tiled", lambda n, d: True)
+    monkeypatch.setattr(thist, "histogram_tiled", lambda n, d: True)
     r = trender.Renderer(sierpinski(), RenderProfile(**SMALL),
                          device="cpu")
     assert "applying tune record" in capsys.readouterr().err
@@ -186,17 +188,17 @@ def test_stale_record_warns_once_a_path(tmp_path, monkeypatch, fresh_tune,
     _write(tmp_path, monkeypatch, {
         "device": "cpu", "flush_records": 4096,
         "timestamp": "2020-01-01T00:00:00+00:00", "git_rev": "0000000"})
-    assert trender._load_tune("cpu")["flush_records"] == 4096
+    assert tretune._load_tune("cpu")["flush_records"] == 4096
     err = capsys.readouterr().err
     assert "days old" in err and "code rev" in err
-    trender._load_tune("cpu")
+    tretune._load_tune("cpu")
     err = capsys.readouterr().err
     assert "days old" not in err and "code rev" not in err
     # a fresh record of this rev: applied without warnings
     _write(tmp_path, monkeypatch,
            tretune.stamp({"device": "cpu", "flush_records": 4096}),
            name="fresh.json")
-    trender._load_tune("cpu")
+    tretune._load_tune("cpu")
     err = capsys.readouterr().err
     assert "applying" in err
     assert "days old" not in err and "code rev" not in err
@@ -223,7 +225,8 @@ def test_resolve_iters_per_chunk_matches_jax(tune, fields, env, monkeypatch,
     tprof = RenderProfile(**{**base, **fields})
     jr = jrender.Renderer(jsierpinski(), jprof)
     tr = trender.Renderer(sierpinski(), tprof, device="cpu")
-    assert tr._resolve_iters_per_chunk(tprof, tune) == \
+    assert tretune.backend_and_flush(tprof, "cpu", tr.packed, tr.cam.n_bins,
+                                     tune)[1] == \
         jr._resolve_iters_per_chunk(jprof, tune)
 
 
@@ -243,16 +246,30 @@ def test_resolve_iters_per_chunk_tiled(backend, tune, want, monkeypatch,
     prof = RenderProfile(**dict(SMALL, batch=1 << 15, iters_per_chunk=0,
                                 hist_backend=backend))
     r = trender.Renderer(sierpinski(), prof, device="cpu")
-    assert r._resolve_iters_per_chunk(prof, tune) == (
+
+    def flush_iters():
+        return tretune.backend_and_flush(prof, "cpu", r.packed,
+                                         r.cam.n_bins, tune)[1]
+    assert flush_iters() == (
         max(1, tune["flush_records"] // prof.batch)
         if "flush_records" in tune else 32)     # never tiled on the CPU
-    monkeypatch.setattr(trender, "histogram_tiled", lambda n, d: True)
-    assert r._resolve_iters_per_chunk(prof, tune) == want
+    monkeypatch.setattr(thist, "histogram_tiled", lambda n, d: True)
+    assert flush_iters() == want
+
+
+def test_tuner_races_the_tables_tunable_backends():
+    """The candidate filters over the table give the tuples they
+    replaced, in their order, and a record may pick any of them."""
+    assert tretune.CANDIDATES == ("scatter", "scatter_sorted", "pallas_win",
+                                  "atomic")
+    assert tretune.TILED_CANDIDATES == tretune.CANDIDATES + ("pallas_rgb16",)
+    assert set(tretune.TILED_CANDIDATES) == {
+        n for n, b in thist.BACKENDS.items() if b.tunable}
 
 
 def test_histogram_tiled_never_on_the_cpu():
-    assert not trender.histogram_tiled(1 << 30, "cpu")
-    assert trender.device_name("cpu") == "cpu"
+    assert not thist.histogram_tiled(1 << 30, "cpu")
+    assert tretune.device_name("cpu") == "cpu"
 
 
 def test_retune_end_to_end_on_the_cpu(tmp_path, monkeypatch, fresh_tune,
