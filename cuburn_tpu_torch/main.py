@@ -147,6 +147,7 @@ def _stats_record(frame_idx, t, stats):
         "filter_ms": round(stats.filter_s * 1e3, 2),
         "chunks": stats.chunks, "records": stats.records,
         "launches": stats.launches, "syncs": stats.syncs,
+        "uploads": stats.uploads,
     }
 
 

@@ -15,7 +15,7 @@ Catmull-Rom, end clamping).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List
+from typing import Dict, List, Union
 
 import numpy as np
 import torch
@@ -29,28 +29,37 @@ from cuburn_tpu_torch.utils import trace
 
 @dataclasses.dataclass
 class PackedGenome:
-    """Device-resident knot tables + the recipe to rebuild GenomeParams.
+    """Device-resident knot tables + the slot of every GenomeParams leaf.
 
     knot_t / knot_v: (P, Kmax) f32, padded by repeating the last knot
     counts:          (P,) int64 -- real knots per slot
     palettes:        (Q, 256, 3) f32 keyframes, palette_times (Q,)
+    slots:           leaf name -> its slot: a Python int for a scalar
+                     leaf, an int64 index tensor on the device otherwise
+    zoom:            the zoom's slot (ppu is scale * 2^zoom)
     """
     knot_t: torch.Tensor
     knot_v: torch.Tensor
     counts: torch.Tensor
     palettes: torch.Tensor
     palette_times: torch.Tensor
-    _rebuild: Callable  # (values (T, P), palettes (T, 256, 3)) -> params
+    slots: Dict[str, Union[int, torch.Tensor]]
+    zoom: int
 
     def eval_params(self, ts) -> GenomeParams:
         """Evaluate at times ts (T,) -> GenomeParams with a leading
         temporal axis (T, ...) on every leaf; `sample_params` takes
-        sample k."""
+        sample k.  Queues one upload and reads nothing back: a scalar
+        leaf's slot is a host int."""
         ts = trace.upload(np.atleast_1d(np.asarray(ts, np.float32)),
                           self.knot_t.device)
         vals = eval_packed(self.knot_t, self.knot_v, self.counts, ts)
-        pals = _palette_at(self.palettes, self.palette_times, ts)
-        return self._rebuild(vals, pals)
+        leaves = {name: vals[:, ix] for name, ix in self.slots.items()}
+        # flam3 zoom: effective ppu = scale * 2^zoom (specs.eval_at)
+        leaves["ppu"] = leaves["ppu"] * 2.0 ** vals[:, self.zoom]
+        return GenomeParams(
+            palette=_palette_at(self.palettes, self.palette_times, ts),
+            **leaves)
 
 
 def sample_params(params_T: GenomeParams, k: int) -> GenomeParams:
@@ -229,29 +238,15 @@ def pack_genome(genome: Genome, device="cpu") -> PackedGenome:
     def on_device(a):
         return trace.upload(a, device)
 
-    slot_of = {name: on_device(np.asarray(ix, np.int64))
-               for name, ix in idx.items()}
-    zoom = on_device(np.asarray(zoom, np.int64))
-
-    def rebuild(vals: torch.Tensor, palette: torch.Tensor) -> GenomeParams:
-        leaves = {name: _take(vals, ix) for name, ix in slot_of.items()}
-        # flam3 zoom: effective ppu = scale * 2^zoom (specs.eval_at)
-        leaves["ppu"] = leaves["ppu"] * 2.0 ** _take(vals, zoom)
-        return GenomeParams(palette=palette, **leaves)
+    def slot(ix):
+        a = np.asarray(ix, np.int64)
+        return int(a) if a.ndim == 0 else on_device(a)
 
     return PackedGenome(
         knot_t=on_device(knot_t), knot_v=on_device(knot_v),
         counts=on_device(counts), palettes=on_device(pals),
-        palette_times=on_device(pal_times), _rebuild=rebuild)
-
-
-def _take(vals: torch.Tensor, ix: torch.Tensor) -> torch.Tensor:
-    """vals[:, ix].  A 0-d index tensor is read on the host to index
-    with: a counted wait (one a scalar leaf, 14 an evaluation)."""
-    if ix.dim():
-        return vals[:, ix]
-    with trace.wait():
-        return vals[:, ix]
+        palette_times=on_device(pal_times),
+        slots={name: slot(ix) for name, ix in idx.items()}, zoom=zoom)
 
 
 def _param_default(attr: str) -> float:

@@ -65,7 +65,7 @@ def init_state(generator: torch.Generator, batch: int,
     age 0 (they run `fuse` warmup iterations before plotting).  Drawn
     from `generator` on its own device, then moved to `device`, so the
     streams differ from the JAX package's threefry-seeded ones.  A CPU
-    generator's draws are four uploads (counted waits)."""
+    generator's draws are four uploads, queued without a wait."""
     gdev = generator.device
     xy = torch.rand((2, batch), generator=generator,
                     device=gdev) * 2.0 - 1.0

@@ -30,10 +30,9 @@ def seed(generator: torch.Generator, n: int,
     differ from JAX's for the same integer seed; parity tests inject
     JAX-made state instead (`cuburn_tpu_torch.params.state_from_numpy`).
     The state is drawn on the generator's device and then moved (from a
-    CPU generator, an upload: a counted wait), so one seed gives the
-    same trajectories on every device.  A lane whose four
-    words are all zero would stay zero forever, so it gets one nonzero
-    word."""
+    CPU generator, an upload queued without a wait), so one seed gives
+    the same trajectories on every device.  A lane whose four words are
+    all zero would stay zero forever, so it gets one nonzero word."""
     bits = torch.randint(0, 1 << 32, (n, 4), generator=generator,
                          dtype=torch.int64, device=generator.device)
     row_zero = (bits == 0).all(dim=-1)

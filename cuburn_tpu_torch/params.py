@@ -33,7 +33,7 @@ def genome_from_jax(genome) -> Genome:
 
 def params_from_genome(params: GenomeParams, device) -> GenomeParams:
     """A GenomeParams whose leaves are float32 tensors on `device`: one
-    upload (a counted wait) a leaf."""
+    upload a leaf, queued without a wait (`utils/trace.py`)."""
     return GenomeParams(**{
         f.name: trace.upload(np.array(getattr(params, f.name), np.float32),
                              device)

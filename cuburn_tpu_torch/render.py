@@ -114,8 +114,9 @@ def temporal_filter_weights(n: int, ftype: str = "box",
 class FrameStats:
     """Per-frame observability record.  `chunks` (chunks run),
     `records` (records flushed), `launches` (hand-written kernels
-    launched) and `syncs` (host waits for the stream) count the
-    frame's own work, its readback included (utils/trace.py)."""
+    launched), `syncs` (host waits for the stream) and `uploads`
+    (host-to-device copies queued without a wait) count the frame's
+    own work, its readback included (utils/trace.py)."""
     plotted_samples: int = 0
     total_iters: int = 0
     iterate_s: float = 0.0
@@ -124,6 +125,7 @@ class FrameStats:
     records: int = 0
     launches: int = 0
     syncs: int = 0
+    uploads: int = 0
 
     def count(self, counted: dict) -> None:
         """Add what `trace.since` counted to the frame's counters."""
@@ -131,6 +133,7 @@ class FrameStats:
         self.records += counted["records"]
         self.launches += counted["launches"]
         self.syncs += counted["syncs"]
+        self.uploads += counted["uploads"]
 
     @property
     def retention(self) -> float:
@@ -558,7 +561,7 @@ class Renderer:
 
     def _hist_on_device(self, hist) -> torch.Tensor:
         """A logical histogram as float32 on the device: uploaded (a
-        counted wait) unless it is a tensor there already."""
+        counted upload) unless it is a tensor there already."""
         if isinstance(hist, torch.Tensor) \
                 and hist.device.type == self.device.type:
             return hist.to(torch.float32)
@@ -796,8 +799,10 @@ class Renderer:
         frame N-1 made after frame N's launches would wait for frame
         N too, so each frame's device-to-host copy (into pinned memory)
         and a CUDA event are queued right behind its own launches, and
-        the yield waits on that event only.  On the CPU the same calls
-        run in the same order with no events.
+        the yield waits on that event only.  Nothing else in a frame
+        waits for the stream: its uploads are queued (`trace.upload`)
+        and the interpolator reads nothing back.  On the CPU the same
+        calls run in the same order with no events.
 
         Images are those of frames(): the same kernels on the same
         inputs in the same order.  They are bit-identical where the

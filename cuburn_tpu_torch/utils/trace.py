@@ -8,12 +8,13 @@ single guarded call.  Spans nest: a span's parent is the span open
 around it.
 
 Every call at which the host waits for the device's stream on CUDA goes
-through `wait()` or `upload()`: a `sync` span, counted in
-COUNTS["syncs"] with the profiler on or off.  A host-to-device copy
-from pageable memory is such a call (PyTorch synchronises the stream
-after it), as are reading a device value on the host and the explicit
-synchronisations.  A site counts the same on the CPU, where it waits
-for nothing, so the CPU's counts are the card's.
+through `wait()`: a `sync` span, counted in COUNTS["syncs"] with the
+profiler on or off.  Reading a device value on the host is such a call,
+as are the explicit synchronisations.  Every host-to-device copy goes
+through `upload()`, which stages the data in page-locked memory and
+queues the copy without waiting: counted in COUNTS["uploads"], not as a
+sync.  A site counts the same on the CPU, where it waits for nothing,
+so the CPU's counts are the card's.
 
 COUNTS holds running totals beside the kernels' LAUNCHES dicts, read
 the same way: `counters()` takes a snapshot of both, `since(before)`
@@ -30,9 +31,11 @@ PREFIX = "cuburn."
 _NULL = contextlib.nullcontext()
 _profiler_enabled = torch.autograd._profiler_enabled
 
-# chunks run, records flushed, host waits for the stream, and the chunks
-# of those queued by one C call (ops/chaos.py launch_accumulate)
-COUNTS = {"chunks": 0, "records": 0, "syncs": 0, "looped_chunks": 0}
+# chunks run, records flushed, host waits for the stream, host-to-device
+# copies queued, and the chunks of those queued by one C call
+# (ops/chaos.py launch_accumulate)
+COUNTS = {"chunks": 0, "records": 0, "syncs": 0, "uploads": 0,
+          "looped_chunks": 0}
 
 
 def span(name: str):
@@ -52,11 +55,22 @@ def wait():
 
 def upload(a, device, dtype=None) -> torch.Tensor:
     """`a` as a tensor of `dtype` on `device`.  Unless `a` is a tensor on
-    a CUDA device already, that copies host memory: one counted wait."""
+    a CUDA device already, that copies host memory: one counted upload.
+
+    To a CUDA device the host data is first copied into a page-locked
+    block, so the caller may change its array as soon as this returns,
+    and the block is copied to the device on the current stream without
+    a wait, queued behind the work before it.  PyTorch's caching host
+    allocator records the copy's event on the block and hands the block
+    out again only after the copy has run."""
     if isinstance(a, torch.Tensor) and a.device.type != "cpu":
         return a.to(device, dtype)
-    with wait():
+    COUNTS["uploads"] += 1
+    if torch.device(device).type != "cuda":
         return torch.as_tensor(a, dtype=dtype, device=device)
+    host = torch.as_tensor(a, dtype=dtype)
+    staged = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+    return staged.copy_(host).to(device, non_blocking=True)
 
 
 def launch_counters():

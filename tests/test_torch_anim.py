@@ -47,6 +47,7 @@ from cuburn_tpu_torch.ops import interp as tinterp  # noqa: E402
 from cuburn_tpu_torch.ops import iterate as tit  # noqa: E402
 from cuburn_tpu_torch.ops.camera import CameraSpec  # noqa: E402
 from cuburn_tpu_torch.profile import RenderProfile as TProfile  # noqa: E402
+from cuburn_tpu_torch.utils import trace  # noqa: E402
 
 RTOL, ATOL = 1e-6, 1e-7
 GENOMES = ("sierpinski", "full_feature", "animated_spark", "kaleido")
@@ -184,6 +185,41 @@ def test_eval_params_temporal_axis():
     assert p.affine.shape[0] == 5 and p.palette.shape == (5, 256, 3)
     assert p.ppu.shape == (5,)
     assert not torch.allclose(p.affine[0], p.affine[-1])
+
+
+@pytest.mark.parametrize("name", GENOMES)
+def test_scalar_slots_are_host_ints_and_index_as_tensors_did(name):
+    """A scalar leaf's slot (and the zoom's) is a Python int, a vector
+    leaf's an index tensor; `eval_params` makes one upload, reads
+    nothing back, and gives every leaf the values, dtype and shape that
+    indexing with 0-d index tensors gave."""
+    def take_0d(vals, ix):
+        # the interpolator's indexing when every slot was an uploaded
+        # int64 tensor, 0-d for a scalar leaf
+        return vals[:, torch.as_tensor(np.asarray(ix, np.int64))]
+
+    g = get_genome(name)
+    pk = tinterp.pack_genome(g, "cpu")
+    host = g.eval_at(0.0)
+    assert set(pk.slots) == {f.name for f in dataclasses.fields(
+        GenomeParams)} - {"palette"}
+    for leaf, ix in pk.slots.items():
+        scalar = np.ndim(getattr(host, leaf)) == 0
+        assert type(ix) is (int if scalar else torch.Tensor), leaf
+    assert type(pk.zoom) is int
+    ts = np.float32(TIMES)
+    before = trace.counters()
+    got = pk.eval_params(ts)
+    counted = trace.since(before)
+    assert (counted["syncs"], counted["uploads"]) == (0, 1)
+    vals = tinterp.eval_packed(pk.knot_t, pk.knot_v, pk.counts,
+                               torch.as_tensor(ts))
+    want = {leaf: take_0d(vals, ix) for leaf, ix in pk.slots.items()}
+    want["ppu"] = want["ppu"] * 2.0 ** take_0d(vals, pk.zoom)
+    for leaf, b in want.items():
+        a = getattr(got, leaf)
+        assert (a.shape, a.dtype) == (b.shape, b.dtype), leaf
+        assert torch.equal(a, b), leaf
 
 
 # -- temporal sampling and frame times -------------------------------------

@@ -15,7 +15,10 @@ trajectories) agree by TV distance under the CPU's two-seed floor, a
 motion-blurred one too; every flush at a gaussian temporal filter's
 weights (0.011, 0.325) from a nonzero histogram within 1e-5 of the
 bin's density; overlapped frames equal serial ones bit for bit through
-the split flush; a striped frame's density equal to the whole frame's
+the split flush, one wait a frame after the first against the serial
+frame's three; an upload queued behind a long kernel returns before
+the kernel ends, and 200 uploads through the pinned cache keep their
+values; a striped frame's density equal to the whole frame's
 in every bin, its flush kernels launched once a flush in every stripe;
 a tune record for this card steers `auto` and the flush size and the
 repo's TPU record does not; the native output encoder is in use; a
@@ -932,6 +935,79 @@ def test_overlapped_frames_within_one_lsb_through_win_flush(cuda):
     for (a, _), (b, _) in zip(r.frames(seed=2), r.frames_overlapped(seed=2)):
         assert a.shape == b.shape == (96, 128, 4)
         assert int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max()) <= 1
+
+
+def test_overlapped_frames_wait_once_a_frame_on_the_card(cuda):
+    """After the first, an overlapped frame waits for the stream once,
+    for its readback's event: its uploads are queued and the
+    interpolator reads nothing back.  Its images are those of frames()
+    bit for bit through the split flush, and it queues the serial
+    frame's uploads, where the serial frame waits three times."""
+    prof = RenderProfile(width=128, height=96, quality=30, batch=8192,
+                         hist_backend="pallas_rgb16", temporal_samples=2,
+                         fps=4.0, duration=0.75)
+    r = trender.Renderer(_spark(), prof)
+    serial = list(r.frames(seed=2))
+    over = list(r.frames_overlapped(seed=2))
+    assert len(serial) == len(over) == 3
+    for (a, sa), (b, sb) in zip(serial, over):
+        np.testing.assert_array_equal(a, b)
+    assert [s.syncs for _img, s in over[1:]] == [1, 1]
+    assert [s.syncs for _img, s in serial[1:]] == [3, 3]
+    for (_a, sa), (_b, sb) in zip(serial[1:], over[1:]):
+        assert sb.uploads == sa.uploads > 0
+
+
+# -- uploads: staged in pinned memory, queued without a wait ---------------
+
+# ~0.5 s of the card's clock: long enough to outlast the host's side
+LONG_SLEEP_CYCLES = 1 << 30
+
+
+def test_upload_returns_before_the_kernel_ahead_of_it_ends(cuda):
+    """An upload queued behind a long kernel returns while the kernel
+    still runs (an event recorded behind the kernel has not passed),
+    counts one upload and no wait, leaves the caller free to change its
+    array, and has the array's values once the stream has run."""
+    want = np.arange(1 << 16, dtype=np.float32)
+    a = want.copy()
+    trace.upload(a, cuda)                 # the pinned block, allocated
+    torch.cuda.synchronize()
+    torch.cuda._sleep(LONG_SLEEP_CYCLES)
+    behind = torch.cuda.Event()
+    behind.record()
+    before = trace.counters()
+    got = trace.upload(a, cuda)
+    assert not behind.query()
+    counted = trace.since(before)
+    assert (counted["uploads"], counted["syncs"]) == (1, 0)
+    a[:] = -1.0
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_uploads_reusing_the_pinned_cache_keep_their_values(cuda):
+    """200 uploads of different arrays, all from one host buffer and
+    queued behind a long kernel, so that a pinned block handed out
+    again before its copy ran would show: each keeps its own values,
+    dtype and shape."""
+    sizes = (1, 31, 4096, 1 << 15)
+    buf = np.empty(1 << 15, np.float64)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(LONG_SLEEP_CYCLES // 4)
+    got, want = [], []
+    for i in range(200):
+        n = sizes[i % len(sizes)]
+        buf[:n] = np.arange(n) + 7.0 * i
+        dtype = torch.float32 if i % 2 else torch.int64
+        got.append(trace.upload(buf[:n], cuda, dtype))
+        want.append(torch.as_tensor(buf[:n].copy(), dtype=dtype))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert (g.dtype, g.shape) == (w.dtype, w.shape)
+        assert torch.equal(g.cpu(), w)
 
 
 # -- frame partitions: stripes through the kernels, unpacked records -------

@@ -204,12 +204,13 @@ def test_genome_loader_and_records_match_jax(capsys):
                             tmain.load_genome(spec, 0))
     with pytest.raises(SystemExit, match="not found"):
         tmain.load_genome(str(REPO / "no_such.flam3"), 0)
-    counters = {"chunks": 3, "records": 96, "launches": 57, "syncs": 80}
+    counters = {"chunks": 3, "records": 96, "launches": 57, "syncs": 3,
+                "uploads": 78}
     stats = type("S", (), {"plotted_samples": 90, "total_iters": 100,
                            "retention": 0.9, "samples_per_sec": 1e6,
                            "iterate_s": 0.25, "filter_s": 0.125,
                            **counters})()
-    # the JAX package's record, and the port's four counters beside it
+    # the JAX package's record, and the port's five counters beside it
     assert tmain._stats_record(2, 0.5, stats) == \
         {**jmain._stats_record(2, 0.5, stats), **counters}
     assert tmain.main(["gallery:sierpinski", "--convert"]) == 0

@@ -8,7 +8,10 @@ Contracts:
   path, their counts equal the frames' FrameStats, and no span is open
   across a yield;
 - the counters of a frame are the sites of the render path, counted
-  the same on the CPU as on the card;
+  the same on the CPU as on the card: its host-to-device copies as
+  `uploads`, queued without a wait, and its real waits as `syncs` (a
+  still 3: the plotted count, the sync, the readback; an overlapped
+  frame 1, its readback's event);
 - images are bit-equal with the profiler on and off;
 - the filter's stages (`logscale`, `de`, `downsample`, `colorclip`) are
   spans nested in `filter`, once each a frame, in a still and in
@@ -51,14 +54,9 @@ ANIM = dict(STILL, temporal_samples=4, duration=2 / 24.0)
 LEAVES = len(dataclasses.fields(GenomeParams))
 
 
-def _eval_waits():
-    """The interpolator's waits a blurred frame: the shutter times'
-    upload, and a read of each 0-d slot index (the scalar leaves and
-    the zoom)."""
-    host = get_genome("animated_spark").eval_at(0.0)
-    scalars = sum(np.ndim(getattr(host, f.name)) == 0
-                  for f in dataclasses.fields(GenomeParams))
-    return 1 + scalars + 1
+# the interpolator's uploads a blurred frame: the shutter times (its
+# scalar slots are host ints, read without a wait)
+EVAL_UPLOADS = 1
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -123,8 +121,27 @@ def test_span_without_a_profiler_is_the_shared_null_context(monkeypatch):
     assert trace.upload(np.ones(3, np.float32), "cpu").dtype == \
         torch.float32
     timing.sync("cpu")
-    assert trace.since(before) == {"chunks": 0, "records": 0, "syncs": 3,
-                                   "looped_chunks": 0, "launches": 0}
+    assert trace.since(before) == {"chunks": 0, "records": 0, "syncs": 2,
+                                   "uploads": 1, "looped_chunks": 0,
+                                   "launches": 0}
+
+
+@pytest.mark.parametrize("a", [np.arange(6, dtype=np.int64).reshape(2, 3),
+                               np.float32(0.5), torch.ones(4)])
+def test_an_upload_counts_one_upload_and_no_sync(a):
+    """On the CPU an upload is `as_tensor` as it was, counted as one
+    upload and no wait, with the profiler off and on."""
+    for recording in (False, True):
+        before = trace.counters()
+        if recording:
+            with profile(activities=[ProfilerActivity.CPU]):
+                got = trace.upload(a, "cpu", torch.float64)
+        else:
+            got = trace.upload(a, "cpu", torch.float64)
+        counted = trace.since(before)
+        assert (counted["uploads"], counted["syncs"]) == (1, 0)
+        assert got.dtype == torch.float64 and got.device.type == "cpu"
+        assert torch.equal(got, torch.as_tensor(a, dtype=torch.float64))
 
 
 def test_still_spans_equal_its_counters(tmp_path):
@@ -148,10 +165,10 @@ def test_still_spans_equal_its_counters(tmp_path):
                        for o in spans)
 
 
-def _filter_waits(r):
-    """The filter's waits: the genome's leaves, the quality scalar, the
-    DE's taps (one a rung blurred directly, two a pyramid rung) and the
-    spatial filter's taps."""
+def _filter_uploads(r):
+    """The filter's uploads: the genome's leaves, the quality scalar,
+    the DE's taps (one a rung blurred directly, two a pyramid rung) and
+    the spatial filter's taps."""
     radii, taps = de_mod.band_ladder(r._static_de_r)
     de = sum(1 if de_mod._pyramid_plan(rad, half, r.cam.acc_width)[0] == 1
              else 2 for rad, half in zip(radii, taps))
@@ -159,14 +176,16 @@ def _filter_waits(r):
 
 
 def test_still_counts_every_wait_of_its_sites():
-    """A still's waits, site by site: the genome's leaves, the
-    trajectories' four draws, the plotted count and the sync, the
-    filter's, and the u8 frame's copy."""
+    """A still's waits, site by site: the plotted count and the sync,
+    and the u8 frame's copy; its uploads: the genome's leaves, the
+    trajectories' four draws and the filter's."""
     r = _still()
     _img, stats = r.render_frame(0.0, seed=3)
-    assert stats.syncs == LEAVES + 4 + 2 + _filter_waits(r) + 1
+    assert stats.syncs == 2 + 1
+    assert stats.uploads == LEAVES + 4 + _filter_uploads(r)
     # the same frame again counts the same
-    assert r.render_frame(0.0, seed=4)[1].syncs == stats.syncs
+    again = r.render_frame(0.0, seed=4)[1]
+    assert (again.syncs, again.uploads) == (stats.syncs, stats.uploads)
 
 
 def test_overlapped_spans_equal_counters_and_close_before_yields(tmp_path):
@@ -182,9 +201,10 @@ def test_overlapped_spans_equal_counters_and_close_before_yields(tmp_path):
     assert counts["sync"] == sum(s.syncs for s in stats)
     assert counts["sample"] == 2 * r.profile.temporal_samples
     assert all(s.chunks == r.profile.temporal_samples for s in stats)
-    # frame 1's waits: the interpolator's, the trajectories', the
-    # filter's, and its readback's
-    assert stats[1].syncs == _eval_waits() + 4 + _filter_waits(r) + 1
+    # frame 1's one wait is its readback's; its uploads are the
+    # interpolator's, the trajectories' and the filter's
+    assert stats[1].syncs == 1
+    assert stats[1].uploads == EVAL_UPLOADS + 4 + _filter_uploads(r)
     marks = _spans(events, "test.")
     assert len(marks) == 2
     for _m, t, _e in marks:
@@ -202,9 +222,11 @@ def test_overlapped_frames_count_their_own_work():
     for a, b in zip(over, serial):
         assert (a.chunks, a.records, a.launches) == \
             (b.chunks, b.records, b.launches)
-    assert serial[1].syncs == _eval_waits() + 4 + 2 + _filter_waits(r) + 1
+    assert serial[1].syncs == 2 + 1
+    assert serial[1].uploads == EVAL_UPLOADS + 4 + _filter_uploads(r)
     # the first frame packs the genome's knots; the second does not
-    assert over[0].syncs > over[1].syncs == serial[1].syncs - 2
+    assert over[0].uploads > over[1].uploads == serial[1].uploads
+    assert over[0].syncs == over[1].syncs == serial[1].syncs - 2 == 1
 
 
 def test_images_are_bit_equal_with_the_profiler_on_and_off():
@@ -288,10 +310,11 @@ def test_launch_counters_have_one_reader():
 def test_metrics_line_carries_the_counters():
     stats = trender.FrameStats(plotted_samples=9, total_iters=10,
                                iterate_s=0.5, filter_s=0.25)
-    stats.count({"chunks": 2, "records": 64, "launches": 34, "syncs": 80})
+    stats.count({"chunks": 2, "records": 64, "launches": 34, "syncs": 3,
+                 "uploads": 78})
     rec = tmain._stats_record(0, 0.0, stats)
     assert (rec["chunks"], rec["records"], rec["launches"],
-            rec["syncs"]) == (2, 64, 34, 80)
+            rec["syncs"], rec["uploads"]) == (2, 64, 34, 3, 78)
 
 
 def _c_loop_stand_in(monkeypatch):
